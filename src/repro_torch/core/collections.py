@@ -88,6 +88,40 @@ def _torch_dtype(token) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# pytrees: ``None`` is structure, not a leaf
+#
+# ``torch.utils._pytree`` flattens ``None`` as a leaf; ``jax.tree_util``
+# (the reference) keeps it in the structure with no payload.  Every
+# flatten of a payload goes through these two, so a value such as
+# ``{"k": page, "v": page, "pos": pos, "cross_kv": None}`` takes the tree
+# codec, ships the same unique-leaf bytes and reports the same sizes as
+# in the JAX package.
+# ---------------------------------------------------------------------------
+def tree_flatten(v) -> tuple[list, tuple]:
+    """Leaves of ``v`` without its ``None`` s, and the spec that puts
+    them back (:func:`tree_unflatten`)."""
+    leaves, treedef = pytree.tree_flatten(v)
+    none_at = tuple(i for i, x in enumerate(leaves) if x is None)
+    if none_at:
+        leaves = [x for x in leaves if x is not None]
+    return leaves, (treedef, none_at, len(leaves) + len(none_at))
+
+
+def tree_unflatten(leaves, spec):
+    treedef, none_at, n = spec
+    if none_at:
+        it = iter(leaves)
+        nones = set(none_at)
+        leaves = [None if i in nones else next(it) for i in range(n)]
+    return pytree.tree_unflatten(list(leaves), treedef)
+
+
+def tree_leaves(v) -> list:
+    """The leaves of ``v``, ``None`` s left out (as ``jax.tree_util``)."""
+    return [x for x in pytree.tree_leaves(v) if x is not None]
+
+
+# ---------------------------------------------------------------------------
 # byte accounting
 # ---------------------------------------------------------------------------
 def unique_leaves_nbytes(leaves, seen: set) -> int:
@@ -119,7 +153,7 @@ def _value_nbytes(x, _seen: set | None = None) -> int:
             return 0
         _seen.add(id(x))
         return int(x.nbytes)
-    leaves = pytree.tree_leaves(x)
+    leaves = tree_leaves(x)
     if len(leaves) == 1 and leaves[0] is x:
         if _seen is not None:
             if id(x) in _seen:
@@ -193,7 +227,7 @@ def _encode_value(v) -> tuple[Any, tuple]:
       nbytes)``, tensor leaves as ``("dev", dtype name, shape, nbytes)``);
     * anything else → pickle.
     """
-    leaves, treedef = pytree.tree_flatten(v)
+    leaves, treedef = tree_flatten(v)
     plain_leaf = len(leaves) == 1 and leaves[0] is v
     if plain_leaf and isinstance(v, np.generic) and _is_host_array(v):
         # numpy scalars decode back to scalars, not 0-d arrays —
@@ -271,7 +305,7 @@ def _decode_value(row, spec):
                                   np.dtype(dt), shape)
             uniq.append(leaf[()] if lkind == "nps" else leaf)
         off += nb
-    return pytree.tree_unflatten([uniq[j] for j in alias], treedef)
+    return tree_unflatten([uniq[j] for j in alias], treedef)
 
 
 def _as_rows(rows, device) -> torch.Tensor:
@@ -878,7 +912,7 @@ class DistMap(DistCollection):
                 continue
             dv = pytree.tree_map(put, v)
             h[k] = dv
-            moved += sum(_value_nbytes(x) for x in pytree.tree_leaves(dv)
+            moved += sum(_value_nbytes(x) for x in tree_leaves(dv)
                          if isinstance(x, torch.Tensor))
         return moved
 
@@ -897,7 +931,7 @@ class DistMap(DistCollection):
             hv = pytree.tree_map(
                 lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, v)
             h[k] = hv
-            moved += sum(_value_nbytes(x) for x in pytree.tree_leaves(hv)
+            moved += sum(_value_nbytes(x) for x in tree_leaves(hv)
                          if isinstance(x, torch.Tensor))
         return moved
 

@@ -7,7 +7,12 @@ seed from it without either side importing the other:
 * arrays: ``{place: [(start, end, rows), ...]}`` with ``rows`` a numpy
   array of the chunk's rows;
 * maps: ``{place: [(key, value), ...]}`` with every tensor leaf of a
-  value exported as a numpy array.
+  value exported as a numpy array;
+* model parameters and decode states: the reference's pytree (dicts
+  and tuples, stacked ``scan`` leaves with a leading period axis) with
+  numpy leaves — what ``jax.tree_util.tree_map(np.asarray, params)``
+  gives.  The port keeps the same leaf paths and shapes (a dense weight
+  is ``(d_in, d_out)`` on both sides), so the converter is a copy.
 
 bfloat16 has no numpy dtype here: its bytes cross as a ``uint16`` view,
 and a bfloat16 array of an extension dtype (``dtype.name ==
@@ -24,7 +29,9 @@ from .distribution import LongRange
 
 __all__ = ["array_state_from_numpy", "array_state_to_numpy",
            "map_state_from_numpy", "map_state_to_numpy",
-           "tensor_from_numpy", "tensor_to_numpy"]
+           "tensor_from_numpy", "tensor_to_numpy",
+           "params_from_numpy", "params_to_numpy",
+           "decode_state_from_numpy", "decode_state_to_numpy"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -106,3 +113,48 @@ def map_state_to_numpy(col: DistMap) -> dict:
             lambda x: tensor_to_numpy(x) if isinstance(x, torch.Tensor)
             else x, col.get(p, k))) for k in keys]
     return out
+
+
+# ---------------------------------------------------------------------------
+# model parameters and decode states
+# ---------------------------------------------------------------------------
+def _tree_from_numpy(tree, device):
+    def leaf(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return x
+        return tensor_from_numpy(x, device)
+    return pytree.tree_map(leaf, tree)
+
+
+def _tree_to_numpy(tree):
+    return pytree.tree_map(
+        lambda x: tensor_to_numpy(x) if isinstance(x, torch.Tensor) else x,
+        tree)
+
+
+def params_from_numpy(cfg, tree, *, device):
+    """The port's parameters on ``device`` from the JAX package's
+    parameter pytree exported as numpy; leaf paths, shapes and dtypes are
+    kept as they are."""
+    from ..models.transformer import _check_supported
+    _check_supported(cfg)
+    return _tree_from_numpy(tree, device)
+
+
+def params_to_numpy(params):
+    """Parameters → the reference's pytree with numpy leaves."""
+    return _tree_to_numpy(params)
+
+
+def decode_state_from_numpy(cfg, tree, *, device):
+    """A decode state on ``device`` from the JAX package's decode-state
+    pytree exported as numpy (bfloat16 caches included)."""
+    from ..models.transformer import _check_supported
+    _check_supported(cfg)
+    return _tree_from_numpy(tree, device)
+
+
+def decode_state_to_numpy(state):
+    """A decode state → numpy pytree (bfloat16 leaves as ``uint16``
+    views)."""
+    return _tree_to_numpy(state)

@@ -1,11 +1,12 @@
-"""Relocation-codec entry points with backend dispatch.
+"""Kernel entry points with backend dispatch.
 
-The port of the codec half of ``repro.kernels.ops``.  Each op resolves
-to (a) the hand-written CUDA kernel (``kernels/reloc_codec.py``) under
-the ``fused`` backend, or (b) the plain PyTorch version
-(``kernels/ref.py``) under ``composite``.  ``auto`` resolves per call to
-``fused`` when the tensors lie on a CUDA device and to ``composite``
-otherwise — as the JAX ``auto`` picks Pallas on a TPU and XLA elsewhere.
+The port of ``repro.kernels.ops`` for the kernels ported so far:
+attention and the relocation codec.  Each op resolves to (a) the
+hand-written CUDA kernel (``kernels/flash_attention.py``,
+``kernels/reloc_codec.py``) under the ``fused`` backend, or (b) the
+plain PyTorch version (``kernels/ref.py``) under ``composite``.
+``auto`` resolves per call to ``fused`` when the tensors lie on a CUDA
+device and to ``composite`` otherwise — as the JAX ``auto`` picks Pallas on a TPU and XLA elsewhere.
 Under ``fused`` a CPU tensor computes the kernel's plain version (the
 CPU parity vehicle); a CUDA tensor launches the kernel or raises.
 
@@ -22,8 +23,9 @@ import torch
 
 from . import ref
 from . import reloc_codec as _rc
+from .flash_attention import flash_attention as _flash
 
-__all__ = ["set_backend", "get_backend", "resolve_backend",
+__all__ = ["set_backend", "get_backend", "resolve_backend", "attention",
            "reloc_encode_pack", "reloc_pack_rows", "reloc_decode_rows"]
 
 _VALID = ("auto", "fused", "composite")
@@ -58,6 +60,18 @@ def resolve_backend(impl: str | None = None, device=None) -> str:
             else torch.device("cpu")
         b = "fused" if dev.type == "cuda" else "composite"
     return b
+
+
+def attention(q, k, v, *, causal=True, window=None, softcap=0.0,
+              sm_scale=None, impl: str | None = None):
+    """Attention over (B, H, S, D) heads: the flash kernel under
+    ``fused`` (its plain version for CPU tensors), ``flash_ref`` under
+    ``composite``."""
+    if resolve_backend(impl, q.device) == "composite":
+        return ref.flash_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, sm_scale=sm_scale)
+    return _flash(q, k, v, causal=causal, window=window, softcap=softcap,
+                  sm_scale=sm_scale)
 
 
 def reloc_encode_pack(mat, idx, widths, *, pairs, slots, width,

@@ -19,32 +19,27 @@ transport's window hot path is one kernel per row-width class:
 The kernels are CUDA C++ (``csrc/reloc_codec.cu``) with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/repro_torch_kernels/<hash of source and flags>/`` and loaded
-with ``ctypes``.  A wrapper given a CUDA tensor launches its kernel on
-the current stream or raises; given a CPU tensor it computes the plain
-version (``kernels/ref.py``) — the CPU parity vehicle, as
+with ``ctypes`` (``kernels/cuda_build.py``).  A wrapper given a CUDA
+tensor launches its kernel on the current stream or raises; given a
+CPU tensor it computes the plain version (``kernels/ref.py``) — the
+CPU parity vehicle, as
 ``pallas_interpret`` is for the JAX package.  Each launch adds one to
-``launch_counts[<kernel name>]``.
+``launch_counts[<kernel name>]``, the registry every kernel of the port
+shares.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from . import ref
+from .cuda_build import (CudaLibrary, counted, launch_counts,
+                         reset_launch_counts)
 
 __all__ = ["encode_pack", "pack_rows", "decode_rows",
-           "launch_counts", "reset_launch_counts", "build", "KERNELS",
-           "SOURCE"]
-
-#: the kernels' CUDA source, relative to the repository root
-SOURCE = "src/repro_torch/kernels/csrc/reloc_codec.cu"
+           "launch_counts", "reset_launch_counts", "KERNELS", "SOURCE",
+           "LIBRARY"]
 
 #: kernel name → the TPU kernel (file:line) it replaces
 KERNELS = {
@@ -54,87 +49,19 @@ KERNELS = {
 }
 
 
-# ---------------------------------------------------------------------------
-# launch counters
-# ---------------------------------------------------------------------------
-_COUNT_LOCK = threading.Lock()
-launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+def _bind(lib) -> None:
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    lib.reloc_encode_pack.argtypes = [P, P, P, P, L, L, L, L, P]
+    lib.reloc_pack_rows.argtypes = [P, P, P, P, L, L, L, P]
+    lib.reloc_decode_rows.argtypes = [P, P, L, L, L, P]
+    for fn in (lib.reloc_encode_pack, lib.reloc_pack_rows,
+               lib.reloc_decode_rows):
+        fn.restype = ctypes.c_int
 
 
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for name in launch_counts:
-            launch_counts[name] = 0
-
-
-def _counted(name: str) -> None:
-    # depth-2 windows launch from their background delivery thread
-    with _COUNT_LOCK:
-        launch_counts[name] += 1
-
-
-# ---------------------------------------------------------------------------
-# build + bind
-# ---------------------------------------------------------------------------
-_SRC = Path(__file__).resolve().parent / "csrc" / "reloc_codec.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" \
-    / "repro_torch_kernels"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-_BUILD_LOCK = threading.Lock()
-_LIB = None
-#: the compiler's output of the build this process loaded (ptxas lines)
-build_log = ""
-
-
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if home and Path(home, "bin", "nvcc").exists():
-            return str(Path(home, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the relocation-codec kernels "
-                           "are built from csrc/reloc_codec.cu at first use "
-                           "and need the CUDA toolkit")
-    return found
-
-
-def build() -> Path:
-    """Compile ``csrc/reloc_codec.cu`` (once per source and flags) and
-    return the shared library's path."""
-    global build_log
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_ROOT / key / "libreloc_codec.so"
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"libreloc_codec.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    build_log = proc.stderr
-    os.replace(tmp, lib)
-    return lib
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        with _BUILD_LOCK:
-            if _LIB is None:
-                lib = ctypes.CDLL(str(build()))
-                P, L = ctypes.c_void_p, ctypes.c_longlong
-                lib.reloc_encode_pack.argtypes = [P, P, P, P, L, L, L, L, P]
-                lib.reloc_pack_rows.argtypes = [P, P, P, P, L, L, L, P]
-                lib.reloc_decode_rows.argtypes = [P, P, L, L, L, P]
-                for fn in (lib.reloc_encode_pack, lib.reloc_pack_rows,
-                           lib.reloc_decode_rows):
-                    fn.restype = ctypes.c_int
-                _LIB = lib
-    return _LIB
+LIBRARY = CudaLibrary("reloc_codec.cu", "reloc_codec", _bind, KERNELS)
+#: the kernels' CUDA source, relative to the repository root
+SOURCE = LIBRARY.source
 
 
 def _check(rc: int, name: str) -> None:
@@ -192,11 +119,11 @@ def encode_pack(mat, idx, widths, *, pairs: int, slots: int,
     out = torch.empty((pairs, slots, width), dtype=torch.uint8,
                       device=mat.device)
     if n * width:
-        rc = _lib().reloc_encode_pack(
+        rc = LIBRARY.lib().reloc_encode_pack(
             mat.data_ptr(), idx.data_ptr(), widths.data_ptr(),
             out.data_ptr(), n, m, nb, width, _stream(mat.device))
         _check(rc, "reloc_encode_pack")
-        _counted("reloc_encode_pack")
+        counted("reloc_encode_pack")
     return out
 
 
@@ -225,12 +152,12 @@ def pack_rows(flat_src, offsets, widths, *, pairs: int, slots: int,
     out = torch.empty((pairs, slots, width), dtype=torch.uint8,
                       device=flat_src.device)
     if n * width:
-        rc = _lib().reloc_pack_rows(
+        rc = LIBRARY.lib().reloc_pack_rows(
             flat_src.data_ptr(), offsets.data_ptr(), widths.data_ptr(),
             out.data_ptr(), n, int(flat_src.shape[0]), width,
             _stream(flat_src.device))
         _check(rc, "reloc_pack_rows")
-        _counted("reloc_pack_rows")
+        counted("reloc_pack_rows")
     return out
 
 
@@ -256,9 +183,9 @@ def decode_rows(rows, *, nbytes: int, dtype: torch.dtype) -> torch.Tensor:
                          f"{rows.stride()}")
     out = torch.empty((m, nbytes // isz), dtype=dtype, device=rows.device)
     if m * nbytes:
-        rc = _lib().reloc_decode_rows(
+        rc = LIBRARY.lib().reloc_decode_rows(
             rows.data_ptr(), out.data_ptr(), m, rows.stride(0), nbytes,
             _stream(rows.device))
         _check(rc, "reloc_decode_rows")
-        _counted("reloc_decode_rows")
+        counted("reloc_decode_rows")
     return out

@@ -210,7 +210,9 @@ class TestDispatch:
         trc.encode_pack(mat, np.arange(4, dtype=np.int32) % 3,
                         np.full(4, 16, np.int32), pairs=2, slots=2,
                         width=16)
-        assert trc.launch_counts == {k: 0 for k in trc.KERNELS}
+        # one registry counts every kernel of the port: none launched
+        assert set(trc.KERNELS) <= set(trc.launch_counts)
+        assert not any(trc.launch_counts.values())
 
 
 # ---------------------------------------------------------------------------

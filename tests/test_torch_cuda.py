@@ -2,17 +2,26 @@
 
 Needs an NVIDIA card and ``nvcc`` (the kernels have no CPU mode; their
 plain versions are held against the JAX package in
-``test_torch_codec.py``).  Imports neither JAX nor ``ml_dtypes``, so it
-runs on a machine that has only PyTorch:
+``test_torch_codec.py`` and ``test_torch_attention.py``).  Imports
+neither JAX nor ``ml_dtypes``, so it runs on a machine that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact (``torch.equal``) — the kernels only move bytes.
+Tolerances: the codec kernels exactly (``torch.equal``) — they only
+move bytes; the flash kernel within ``1e-4`` in float32 and ``2e-2``
+(absolute and relative) in bfloat16 and float16 of ``flash_ref`` — both
+sum in f32, in another order, and round the output once; the model's
+fused prefill within ``3e-2`` of the composite one in bfloat16, the
+tolerance of ``tests/test_arch_smoke.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import reloc_codec as rc
 
@@ -94,3 +103,89 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                  # table length
         rc.pack_rows(rows.reshape(-1), np.zeros(3, np.int64),
                      np.zeros(4, np.int32), pairs=2, slots=2, width=8)
+
+
+FLASH_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap)
+    (2, 4, 4, 70, 70, 64, True, None, 0.0),
+    (1, 6, 1, 129, 129, 128, True, None, 0.0),
+    (2, 8, 1, 100, 100, 256, False, None, 0.0),
+    (1, 4, 2, 200, 200, 128, True, 48, 0.0),
+    (1, 4, 2, 65, 65, 128, False, None, 50.0),
+    (2, 4, 2, 1, 90, 128, True, None, 0.0),           # Sq = 1
+    (1, 2, 1, 130, 40, 64, True, 16, 0.0),            # masked rows
+]
+
+
+def _flash_inputs(case, dtype, seed):
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda h, s: torch.randn((B, h, s, D), generator=g,
+                                  device="cuda").to(dt)
+    return mk(Hq, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_flash_ref_on_card(case, dtype):
+    _need_card()
+    q, k, v = _flash_inputs(case, dtype, seed=len(str(case)))
+    causal, window, softcap = case[6:]
+    before = rc.launch_counts["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    want = ref.flash_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+    torch.cuda.synchronize()
+    assert rc.launch_counts["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=0 if dtype == "float32" else tol)
+    assert torch.isfinite(got.float()).all()
+    if causal and window is not None and case[3] > case[4]:
+        # top-left causal rows i >= Skv + window - 1 keep no key: exact 0
+        dead = case[4] + window - 1
+        assert not got[:, :, dead:].float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    q = torch.zeros((1, 2, 8, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # head dim 32
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 64), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # 3 % 2 heads
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError):                  # float64
+        fa.flash_attention(q.double(), k.double(), k.double())
+
+
+@pytest.mark.cuda
+def test_model_prefill_fused_matches_composite_on_card():
+    _need_card()
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.models.parallel import Parallel
+    from repro_torch.serving.decode import serving_config
+
+    cfg = dataclasses.replace(serving_config(), head_dim=64)
+    par = Parallel()
+    params = zoo.init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                           device="cuda", dtype=torch.int32)
+    before = rc.launch_counts["flash_attention"]
+    st_f, lg_f = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="fused")
+    assert rc.launch_counts["flash_attention"] == before + cfg.n_layers
+    st_c, lg_c = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="composite")
+    torch.testing.assert_close(lg_f, lg_c, atol=3e-2, rtol=3e-2)
+    for a, b in zip(st_f["scan"][0].values(), st_c["scan"][0].values()):
+        torch.testing.assert_close(a.float(), b.float(), atol=3e-2,
+                                   rtol=3e-2)

@@ -43,7 +43,16 @@ def test_package_has_the_slice_modules():
                 "core/relocation.py", "core/teamed.py", "core/balancer.py",
                 "core/glb.py", "core/spmd_glb.py", "core/interop.py",
                 "kernels/ops.py", "kernels/ref.py", "kernels/reloc_codec.py",
-                "kernels/csrc/reloc_codec.cu", "analysis/sanitizer.py"):
+                "kernels/csrc/reloc_codec.cu", "analysis/sanitizer.py",
+                "kernels/cuda_build.py", "kernels/flash_attention.py",
+                "kernels/csrc/flash_attention.cu", "models/config.py",
+                "models/parallel.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "models/zoo.py", "configs/__init__.py",
+                "configs/qwen2_1_5b.py", "serving/cache.py",
+                "serving/workload.py", "serving/router.py",
+                "serving/elastic.py", "serving/decode.py",
+                "runtime/fault_tolerance.py"):
         assert (PORT / mod).is_file(), mod
 
 
@@ -57,7 +66,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.core.interop\n"
+            "repro_torch.core.interop, repro_torch.models, "
+            "repro_torch.configs, repro_torch.serving, "
+            "repro_torch.runtime\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -80,9 +91,31 @@ def test_place_group_defaults_to_the_card():
 
 
 def test_kernel_build_needs_no_card_to_import():
-    # importing the kernel module builds nothing; the build happens at
+    # importing the kernel modules builds nothing; the build happens at
     # the first launch on a CUDA tensor
-    from repro_torch.kernels import reloc_codec
+    from repro_torch.kernels import cuda_build, flash_attention, reloc_codec
 
-    assert reloc_codec._LIB is None or torch.cuda.is_available()
-    assert set(reloc_codec.launch_counts) == set(reloc_codec.KERNELS)
+    for mod in (reloc_codec, flash_attention):
+        assert mod.LIBRARY._lib is None or torch.cuda.is_available()
+    # one registry counts every kernel of the port
+    assert reloc_codec.launch_counts is cuda_build.launch_counts
+    assert set(cuda_build.launch_counts) == set(reloc_codec.KERNELS) | set(
+        flash_attention.KERNELS)
+    assert flash_attention.SOURCE == \
+        "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+
+def test_serving_entry_points_default_to_the_card():
+    from repro_torch.models import zoo
+    from repro_torch.serving import (DecodeEngine, ElasticServingDriver,
+                                     serving_config)
+
+    if torch.cuda.is_available():
+        assert zoo.default_device().type == "cuda"
+        return
+    for make in (DecodeEngine, lambda: ElasticServingDriver(2),
+                 lambda: zoo.init_params(serving_config(), 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    d = ElasticServingDriver(2, device="cpu")
+    assert d.group.device.type == "cpu"
