@@ -2,9 +2,10 @@
 
 The same ten names as ``repro.configs``.  The port carries the config
 modules of the architectures whose mixers it has ported: ``qwen2_1_5b``
-(global attention + dense SwiGLU).  The other nine come with their
-mixers (ROADMAP.md queue 1, slice 3); asking for one raises
-``NotImplementedError``.
+(global attention + dense SwiGLU), ``recurrentgemma_2b`` (RG-LRU + local
+attention) and ``xlstm_350m`` (mLSTM + sLSTM).  The other seven come
+in later slices (ROADMAP.md queue 1, slice 4 and after); asking for one
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ ARCH_IDS = [
 ]
 
 #: the configs whose every mixer the port runs
-PORTED = ("qwen2_1_5b",)
+PORTED = ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -37,8 +38,7 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if key not in PORTED:
         raise NotImplementedError(
-            f"{key} needs mixers the port has not ported yet (ROADMAP.md "
-            "queue 1, slice 3: the mixers with rg_lru, mlstm_chunkwise, "
-            "moe_combine, gather_rows and MLA)")
+            f"{key} is not among the port's configs yet (ROADMAP.md queue "
+            "1, slice 4 and after)")
     mod = importlib.import_module(f".{key}", __package__)
     return mod.CONFIG

@@ -1,10 +1,12 @@
 """Kernel entry points with backend dispatch.
 
 The port of ``repro.kernels.ops`` for the kernels ported so far:
-attention and the relocation codec.  Each op resolves to (a) the
-hand-written CUDA kernel (``kernels/flash_attention.py``,
-``kernels/reloc_codec.py``) under the ``fused`` backend, or (b) the
-plain PyTorch version (``kernels/ref.py``) under ``composite``.
+attention, the RG-LRU scan, the chunkwise mLSTM and the relocation
+codec.  Each op resolves to (a) the hand-written CUDA kernel
+(``kernels/flash_attention.py``, ``kernels/rg_lru.py``,
+``kernels/mlstm.py``, ``kernels/reloc_codec.py``) under the ``fused``
+backend, or (b) the plain PyTorch version (``kernels/ref.py``) under
+``composite``.
 ``auto`` resolves per call to ``fused`` when the tensors lie on a CUDA
 device and to ``composite`` otherwise — as the JAX ``auto`` picks Pallas on a TPU and XLA elsewhere.
 Under ``fused`` a CPU tensor computes the kernel's plain version (the
@@ -24,9 +26,12 @@ import torch
 from . import ref
 from . import reloc_codec as _rc
 from .flash_attention import flash_attention as _flash
+from .mlstm import mlstm_chunkwise as _mlstm
+from .rg_lru import rg_lru as _rg_lru
 
 __all__ = ["set_backend", "get_backend", "resolve_backend", "attention",
-           "reloc_encode_pack", "reloc_pack_rows", "reloc_decode_rows"]
+           "rg_lru_scan", "mlstm", "reloc_encode_pack", "reloc_pack_rows",
+           "reloc_decode_rows"]
 
 _VALID = ("auto", "fused", "composite")
 _BACKEND = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "auto")
@@ -72,6 +77,27 @@ def attention(q, k, v, *, causal=True, window=None, softcap=0.0,
                              softcap=softcap, sm_scale=sm_scale)
     return _flash(q, k, v, causal=causal, window=window, softcap=softcap,
                   sm_scale=sm_scale)
+
+
+def rg_lru_scan(x, a, h0=None, *, impl: str | None = None):
+    """RG-LRU scan over (B, S, D): the kernel under ``fused`` (its plain
+    version for CPU tensors), ``rg_lru_ref`` under ``composite``.
+    Returns (h_seq in ``x.dtype``, h_last f32)."""
+    if resolve_backend(impl, x.device) == "composite":
+        return ref.rg_lru_ref(x, a, h0)
+    return _rg_lru(x, a, h0)
+
+
+def mlstm(q, k, v, i_gate, f_gate, *, impl: str | None = None,
+          return_state: bool = False):
+    """mLSTM over (BH, S, d): the chunkwise kernel under ``fused`` (its
+    plain version for CPU tensors), the sequential ``mlstm_ref`` under
+    ``composite``.  Returns h [, (C, n, m)]."""
+    if resolve_backend(impl, q.device) == "composite":
+        h, state = ref.mlstm_ref(q, k, v, i_gate, f_gate)
+    else:
+        h, state = _mlstm(q, k, v, i_gate, f_gate)
+    return (h, state) if return_state else h
 
 
 def reloc_encode_pack(mat, idx, widths, *, pairs, slots, width,

@@ -2,7 +2,9 @@
 
 The port of ``repro.kernels.ref``: ``attention_ref`` and ``flash_ref``
 (what ``csrc/flash_attention.cu`` computes, up to the order of f32
-sums) and the relocation codec's ``reloc_*_ref`` (what
+sums), the recurrences ``rg_lru_ref`` and ``mlstm_ref`` (what
+``csrc/rg_lru.cu`` and ``csrc/mlstm.cu`` compute, step by step where the
+kernels fuse or chunk) and the relocation codec's ``reloc_*_ref`` (what
 ``csrc/reloc_codec.cu`` computes, bit for bit), with ordinary tensor
 ops.  The CPU tests hold the port against
 the JAX oracles through these, and ``chip_smoke.py`` holds each kernel
@@ -19,8 +21,9 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "flash_ref", "reloc_encode_pack_ref",
-           "reloc_pack_rows_ref", "reloc_decode_rows_ref"]
+__all__ = ["attention_ref", "flash_ref", "rg_lru_ref", "mlstm_ref",
+           "reloc_encode_pack_ref", "reloc_pack_rows_ref",
+           "reloc_decode_rows_ref"]
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +113,67 @@ def flash_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
         o = torch.einsum("bkgqs,bksd->bkgqd", p, vv) / l.clamp_min(1e-20)
         out[:, :, q0:q1] = o.reshape(B, Hq, q1 - q0, D).to(q.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# recurrences (rg_lru.cu, mlstm.cu)
+# ---------------------------------------------------------------------------
+def rg_lru_ref(x, a, h0=None):
+    """RG-LRU recurrence: ``h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * x_t``,
+    one step at a time in f32.
+
+    x, a: (B, S, D); a in (0, 1); h0: (B, D) f32 or None (zeros).
+    Returns (h_seq (B, S, D) in ``x.dtype``, h_last (B, D) f32)."""
+    B, S, D = x.shape
+    h = torch.zeros((B, D), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    af = a.float()
+    gx = torch.sqrt(torch.clamp(1.0 - af ** 2, 0.0, 1.0)) * x.float()
+    hs = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        h = af[:, t] * h + gx[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h
+
+
+def mlstm_ref(q, k, v, i_gate, f_gate, c0=None, n0=None, m0=None):
+    """Stabilized mLSTM recurrence (xLSTM eqs.), one step at a time:
+
+      m_t = max(log σ(f_t) + m_{t-1}, i_t)
+      C_t = exp(log σ(f_t) + m_{t-1} - m_t) C_{t-1} + exp(i_t - m_t) k_t v_tᵀ
+      n_t = (same decays) n_{t-1} + exp(i_t - m_t) k_t
+      h_t = (C_tᵀ q_t) / max(|n_t · q_t|, 1)
+
+    q, k, v: (B, S, d), scaled by ``1/sqrt(d)`` here in f32; i_gate,
+    f_gate: (B, S) pre-activations.  Returns (h (B, S, d) in ``q.dtype``,
+    (C (B, d, d), n (B, d), m (B,)) in f32)."""
+    B, S, d = q.shape
+    dev = q.device
+    qf = q.float() / math.sqrt(d)
+    kf = k.float() / math.sqrt(d)
+    vf = v.float()
+    ig = i_gate.float()
+    fg = f_gate.float()
+    C = torch.zeros((B, d, d), dtype=torch.float32, device=dev) \
+        if c0 is None else c0.float()
+    n = torch.zeros((B, d), dtype=torch.float32, device=dev) \
+        if n0 is None else n0.float()
+    m = torch.full((B,), float("-inf"), dtype=torch.float32, device=dev) \
+        if m0 is None else m0.float()
+    hs = torch.empty((B, S, d), dtype=torch.float32, device=dev)
+    for t in range(S):
+        qt, kt, vt, it = qf[:, t], kf[:, t], vf[:, t], ig[:, t]
+        logf = torch.nn.functional.logsigmoid(fg[:, t])
+        m_new = torch.maximum(logf + m, it)
+        fdec = torch.exp(logf + m - m_new)
+        iamp = torch.exp(it - m_new)
+        C = fdec[:, None, None] * C + iamp[:, None, None] * (
+            kt[:, :, None] * vt[:, None, :])
+        n = fdec[:, None] * n + iamp[:, None] * kt
+        denom = torch.clamp(torch.abs(torch.sum(n * qt, dim=-1)), min=1.0)
+        hs[:, t] = torch.einsum("bkv,bk->bv", C, qt) / denom[:, None]
+        m = m_new
+    return hs.to(q.dtype), (C, n, m)
 
 
 # ---------------------------------------------------------------------------

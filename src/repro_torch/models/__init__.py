@@ -1,8 +1,11 @@
 """Model zoo of the port: the blocks the ported configs need (global and
-sliding-window GQA attention, SwiGLU, RMS norm, RoPE)."""
-from . import attention, config, layers, parallel, transformer, zoo
+sliding-window GQA attention, the RG-LRU block, the mLSTM and sLSTM
+blocks, SwiGLU and GeGLU, RMS norm, RoPE)."""
+from . import (attention, config, device, layers, parallel, rglru, ssm,
+               transformer, zoo)
 from .config import LayerSlot, ModelConfig
 from .parallel import Parallel
 
-__all__ = ["attention", "config", "layers", "parallel", "transformer",
-           "zoo", "LayerSlot", "ModelConfig", "Parallel"]
+__all__ = ["attention", "config", "device", "layers", "parallel", "rglru",
+           "ssm", "transformer", "zoo", "LayerSlot", "ModelConfig",
+           "Parallel"]

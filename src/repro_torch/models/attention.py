@@ -51,7 +51,7 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE comes with qwen2-vl (ROADMAP.md "
-                                  "queue 1, slice 3)")
+                                  "queue 1, slice 4)")
     pos = positions if positions.dim() == 2 else positions[0]
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -64,7 +64,7 @@ def attn_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
     so prefill can seed the cache."""
     if kv_override is not None:
         raise NotImplementedError("cross-attention comes with whisper "
-                                  "(ROADMAP.md queue 1, slice 3)")
+                                  "(ROADMAP.md queue 1, slice 4)")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)

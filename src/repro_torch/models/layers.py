@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, the SwiGLU MLP, embeddings.
+"""Shared building blocks: norms, RoPE, the SwiGLU and GeGLU MLPs,
+embeddings.
 
 The port of ``repro.models.layers`` for the slice's configs.  Parameters
 are plain nested dicts of tensors with the reference's layout (a dense
@@ -8,7 +9,7 @@ weight converter is a copy).  ``init_*`` draw from an explicit
 ``jax.random``'s draws (tests carry the JAX package's weights across
 with ``core.interop.params_from_numpy``).
 
-``mrope`` and ``geglu`` wait for the configs that use them.
+``mrope`` waits for the config that uses it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "embed_init",
-           "rope", "swiglu_init", "swiglu"]
+           "rope", "swiglu_init", "swiglu", "geglu_init", "geglu"]
 
 
 def _normal(gen: torch.Generator, shape, dtype, scale: float):
@@ -84,3 +85,14 @@ def swiglu_init(gen, d: int, d_ff: int, dtype):
 
 def swiglu(p, x):
     return dense(p["wo"], F.silu(dense(p["wg"], x)) * dense(p["wi"], x))
+
+
+def geglu_init(gen, d: int, d_ff: int, dtype):
+    return swiglu_init(gen, d, d_ff, dtype)
+
+
+def geglu(p, x):
+    """GeGLU with the tanh approximation of GELU (as the reference's
+    ``jax.nn.gelu(approximate=True)``)."""
+    return dense(p["wo"], F.gelu(dense(p["wg"], x), approximate="tanh")
+                 * dense(p["wi"], x))

@@ -1,5 +1,6 @@
 """Composable decoder LM: the port of ``repro.models.transformer`` for
-``attn_global`` / ``attn_local`` mixers with dense SwiGLU FFNs.
+``attn_global`` / ``attn_local`` / ``rec`` (RG-LRU) / ``mlstm`` /
+``slstm`` mixers with dense SwiGLU FFNs or none.
 
 The parameter and decode-state pytrees keep the reference's layout —
 dicts and tuples, ``prefix`` (unstacked) + ``scan`` (one stacked dict
@@ -11,9 +12,9 @@ keys in sorted order: ``jax.tree_util`` flattens dicts by sorted key,
 leaves out in flatten order.  ``jax.lax.scan`` over the stacked
 periods becomes a Python loop over ``params["scan"][j][i]`` views.
 
-Other mixers (``mla``, ``rec``, ``mlstm``, ``slstm``), MoE FFNs and
-cross-attention raise ``NotImplementedError`` (ROADMAP.md queue 1, slice
-3); ``train_loss`` / ``lm_loss`` wait for the training slice.
+MLA, MoE FFNs, encoder-decoder configs and multi-token prediction
+raise ``NotImplementedError`` (ROADMAP.md queue 1, slice 4);
+``train_loss`` / ``lm_loss`` wait for the training slice.
 
 Two departures from a line-by-line copy, neither of which changes a
 result:
@@ -25,7 +26,8 @@ result:
   as it is, so a caller that casts once (``DecodeEngine``) pays once.
 * the reference's functional write-then-attend (``.at[].set``) is one
   clone of the incoming decode state per step, then in-place writes into
-  the clone: the caller's state (a ``SeqKV`` an in-flight migration
+  the clone (a recurrent block's new state is copied into its slot of
+  the clone): the caller's state (a ``SeqKV`` an in-flight migration
   window may be reading) is never written.
 """
 from __future__ import annotations
@@ -39,9 +41,15 @@ from torch.utils import _pytree as pytree
 from .attention import (attn_attend_cache, attn_decode_project, attn_forward,
                         attn_init)
 from .config import LayerSlot, ModelConfig
+from .device import default_device
 from .layers import (dense_init, embed_init, rmsnorm, rmsnorm_init, swiglu,
                      swiglu_init)
 from .parallel import Parallel, constrain
+from .rglru import (rglru_block, rglru_block_init, rglru_block_step,
+                    rglru_empty_state)
+from .ssm import (mlstm_block, mlstm_block_init, mlstm_block_step,
+                  mlstm_empty_state, slstm_block, slstm_block_init,
+                  slstm_block_step, slstm_empty_state)
 
 __all__ = ["init_params", "decode_step", "prefill", "prefill_forward",
            "init_decode_state", "cast_params"]
@@ -49,7 +57,9 @@ __all__ = ["init_params", "decode_step", "prefill", "prefill_forward",
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
 
-_SLICE3 = "ROADMAP.md queue 1, slice 3"
+_NEXT = "ROADMAP.md queue 1, slice 4"
+_ATTN = ("attn_global", "attn_local")
+_MIXERS = _ATTN + ("rec", "mlstm", "slstm")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -61,16 +71,16 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for slot in cfg.layer_slots():
-        if slot.mixer not in ("attn_global", "attn_local"):
+        if slot.mixer not in _MIXERS:
             raise NotImplementedError(
-                f"mixer {slot.mixer!r} is not ported yet ({_SLICE3})")
-        if slot.ffn != "dense":
+                f"mixer {slot.mixer!r} is not ported yet ({_NEXT})")
+        if slot.ffn not in ("dense", "none"):
             raise NotImplementedError(
-                f"ffn {slot.ffn!r} is not ported yet ({_SLICE3})")
+                f"ffn {slot.ffn!r} is not ported yet ({_NEXT})")
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder configs ({_SLICE3})")
+        raise NotImplementedError(f"encoder-decoder configs ({_NEXT})")
     if cfg.mtp_depth:
-        raise NotImplementedError(f"multi-token prediction ({_SLICE3})")
+        raise NotImplementedError(f"multi-token prediction ({_NEXT})")
 
 
 def cast_params(params, cfg: ModelConfig):
@@ -89,13 +99,20 @@ def cast_params(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Block init / forward
 # ---------------------------------------------------------------------------
+_MIXER_INIT = {"attn_global": attn_init, "attn_local": attn_init,
+               "rec": rglru_block_init, "mlstm": mlstm_block_init}
+
+
 def _block_init(gen, cfg: ModelConfig, slot: LayerSlot, dtype):
-    p: dict[str, Any] = {
-        "norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "mixer": attn_init(gen, cfg, dtype),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype),
-    }
+    p: dict[str, Any] = {}
+    if slot.mixer == "slstm":
+        p["mixer"] = slstm_block_init(gen, cfg, dtype)  # self-contained
+    else:
+        p["norm1"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+        p["mixer"] = _MIXER_INIT[slot.mixer](gen, cfg, dtype)
+    if slot.ffn == "dense":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
@@ -104,16 +121,33 @@ def _zero_aux(device):
     return {"aux": z, "z": z}
 
 
+def _ffn(p, cfg: ModelConfig, slot: LayerSlot, x):
+    if slot.ffn == "dense":
+        x = x + swiglu(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x
+
+
 def _block_forward(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
                    positions, *, impl=None, causal=True):
-    """Full-sequence block application. Returns (x, aux, cache_entry)."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = cfg.window if slot.mixer == "attn_local" else None
-    y, cache = attn_forward(p["mixer"], cfg, h, positions, causal=causal,
-                            window=window, impl=impl, par=par)
-    x = x + y
-    x = x + swiglu(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x, _zero_aux(x.device), cache
+    """Full-sequence block application. Returns (x, aux, cache_entry):
+    (k, v) for attention, the final recurrent state otherwise."""
+    if slot.mixer == "slstm":
+        x, cache = slstm_block(p["mixer"], cfg, x, return_state=True)
+    else:
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        if slot.mixer in _ATTN:
+            window = cfg.window if slot.mixer == "attn_local" else None
+            y, cache = attn_forward(p["mixer"], cfg, h, positions,
+                                    causal=causal, window=window, impl=impl,
+                                    par=par)
+        elif slot.mixer == "rec":
+            y, cache = rglru_block(p["mixer"], cfg, h, impl=impl,
+                                   return_state=True)
+        else:
+            y, cache = mlstm_block(p["mixer"], cfg, h, impl=impl,
+                                   return_state=True)
+        x = x + y
+    return _ffn(p, cfg, slot, x), _zero_aux(x.device), cache
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +195,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def _positions_for(cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.mrope_sections:
-        raise NotImplementedError(f"M-RoPE positions ({_SLICE3})")
+        raise NotImplementedError(f"M-RoPE positions ({_NEXT})")
     tokens = batch["tokens"]
     B, S = tokens.shape
     return torch.arange(S, dtype=torch.int32,
@@ -245,12 +279,15 @@ def _logits(params, cfg: ModelConfig, h):
 # ---------------------------------------------------------------------------
 # Serving: decode with caches
 # ---------------------------------------------------------------------------
+_EMPTY_STATE = {"rec": rglru_empty_state, "mlstm": mlstm_empty_state,
+                "slstm": slstm_empty_state}
+
+
 def _slot_cache_shape(cfg: ModelConfig, slot: LayerSlot, batch: int,
                       s_cache: int, device, lead: tuple = ()):
+    if slot.mixer in _EMPTY_STATE:
+        return _EMPTY_STATE[slot.mixer](cfg, batch, device=device, lead=lead)
     hd = cfg.resolved_head_dim
-    if slot.mixer not in ("attn_global", "attn_local"):
-        raise NotImplementedError(
-            f"mixer {slot.mixer!r} is not ported yet ({_SLICE3})")
     size = s_cache if slot.mixer == "attn_global" else min(
         s_cache, cfg.window or s_cache)
     dt = _torch_dtype(cfg.dtype)
@@ -265,9 +302,12 @@ def _slot_cache_shape(cfg: ModelConfig, slot: LayerSlot, batch: int,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, s_cache: int, *,
-                      device="cpu"):
-    """Empty decode state (zeros; cache positions -1) on ``device``."""
+                      device=None):
+    """Empty decode state (zeros; cache positions -1; stabilizers -inf)
+    on ``device`` — the CUDA card unless the caller asks for another (with
+    no card and no ``device`` it raises)."""
     _check_supported(cfg)
+    device = default_device(device)
     prefix_slots, n_periods, suffix_slots = _layer_plan(cfg)
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -282,12 +322,28 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_cache: int, *,
     }
 
 
+def _write(cache, new) -> None:
+    """Copy a recurrent block's new state into its slot of the clone."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
 def _block_decode(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
                   positions, cache):
     """One-token decode through a block.  ``cache`` is owned by the
-    caller's fresh clone of the state: the new row is written into it in
-    place, then attended (write-then-attend).  Returns (x, cache)."""
+    caller's fresh clone of the state: an attention block writes the new
+    row into it in place, then attends (write-then-attend); a recurrent
+    block's new state is copied into it.  Returns (x, cache)."""
+    if slot.mixer == "slstm":
+        x, new = slstm_block_step(p["mixer"], cfg, x, cache)
+        _write(cache, new)
+        return x, cache
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if slot.mixer in ("rec", "mlstm"):
+        step = rglru_block_step if slot.mixer == "rec" else mlstm_block_step
+        y, new = step(p["mixer"], cfg, h, cache)
+        _write(cache, new)
+        return _ffn(p, cfg, slot, x + y), cache
     window = cfg.window if slot.mixer == "attn_local" else None
     q, k_new, v_new = attn_decode_project(p["mixer"], cfg, h, positions)
     size = cache["k"].shape[1]
@@ -299,9 +355,7 @@ def _block_decode(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
                             positions[:, 0].to(cache["pos"].dtype))
     y = attn_attend_cache(p["mixer"], cfg, q, cache["k"], cache["v"],
                           cache["pos"], positions, window=window)
-    x = x + y
-    x = x + swiglu(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x, cache
+    return _ffn(p, cfg, slot, x + y), cache
 
 
 def decode_step(params, cfg: ModelConfig, par: Parallel, state, token_ids,
@@ -376,6 +430,8 @@ def _fill_attn_cache(cfg: ModelConfig, slot: LayerSlot, kv, positions,
 
 def _cache_to_state(cfg: ModelConfig, slot: LayerSlot, c, positions,
                     s_cache: int, stacked: bool):
+    if slot.mixer not in _ATTN:
+        return c  # recurrent states pass through (already final)
     if not stacked:
         return _fill_attn_cache(cfg, slot, c, positions, s_cache)
     k, v = c                                 # (n_periods, B, S, Hkv, hd)
@@ -385,8 +441,8 @@ def _cache_to_state(cfg: ModelConfig, slot: LayerSlot, c, positions,
 
 def prefill_forward(params, cfg: ModelConfig, par: Parallel, batch,
                     s_cache: int, *, impl=None):
-    """Parallel prefill: full forward through the flash kernel, returns
-    (decode_state, last_logits (B, V) f32)."""
+    """Parallel prefill: full forward through the flash, RG-LRU and mLSTM
+    kernels, returns (decode_state, last_logits (B, V) f32)."""
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     positions = _positions_for(cfg, batch)

@@ -11,22 +11,11 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
+from .device import default_device
 from .parallel import Parallel
 from . import transformer as T
 
 __all__ = ["init_params", "decode_fn", "prefill_fn", "default_device"]
-
-
-def default_device(device=None) -> torch.device:
-    """``device``, or the CUDA card when none is given; with no card the
-    caller must ask for the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the port's models default to the CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):

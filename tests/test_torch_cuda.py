@@ -2,7 +2,8 @@
 
 Needs an NVIDIA card and ``nvcc`` (the kernels have no CPU mode; their
 plain versions are held against the JAX package in
-``test_torch_codec.py`` and ``test_torch_attention.py``).  Imports
+``test_torch_codec.py``, ``test_torch_attention.py``,
+``test_torch_recurrent.py`` and ``test_torch_xlstm.py``).  Imports
 neither JAX nor ``ml_dtypes``, so it runs on a machine that has only
 PyTorch:
 
@@ -13,13 +14,15 @@ move bytes; the flash kernel within ``1e-4`` in float32 and ``2e-2``
 (absolute and relative) in bfloat16 and float16 of ``flash_ref`` — both
 sum in f32, in another order, and round the output once; the model's
 fused prefill within ``3e-2`` of the composite one in bfloat16, the
-tolerance of ``tests/test_arch_smoke.py``.
+tolerance of ``tests/test_arch_smoke.py``; the recurrence kernels and
+the recurrent models within the tolerances stated at their tests.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
@@ -189,3 +192,163 @@ def test_model_prefill_fused_matches_composite_on_card():
     for a, b in zip(st_f["scan"][0].values(), st_c["scan"][0].values()):
         torch.testing.assert_close(a.float(), b.float(), atol=3e-2,
                                    rtol=3e-2)
+
+
+# -- the recurrences: rg_lru and the chunkwise mLSTM --------------------------
+RG_LRU_CASES = [
+    # (B, S, D, with h0)
+    (2, 256, 128, True), (1, 100, 96, False), (3, 64, 32, True),
+    (1, 517, 2560, True), (2, 7, 33, False), (1, 16, 1, True),
+]
+
+
+def _rg_lru_inputs(case, dtype, seed):
+    B, S, D, with_h0 = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn((B, S, D), generator=g, device="cuda").to(dt)
+    a = (0.5 + 0.49 * torch.rand((B, S, D), generator=g,
+                                 device="cuda")).to(dt)
+    h0 = torch.randn((B, D), generator=g, device="cuda") if with_h0 else None
+    return x, a, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", RG_LRU_CASES, ids=str)
+def test_rg_lru_kernel_matches_plain_version_on_card(case, dtype):
+    """Within 1e-5 on unit-scale inputs: the kernel contracts a*h + b
+    into one FMA where the plain version rounds twice; a 16-bit output
+    may differ from the plain one's by the last bit of its rounding."""
+    _need_card()
+    from repro_torch.kernels import rg_lru as rl
+
+    x, a, h0 = _rg_lru_inputs(case, dtype, seed=len(str(case)))
+    before = rc.launch_counts["rg_lru"]
+    hs, hl = rl.rg_lru(x, a, h0)
+    want_s, want_l = ref.rg_lru_ref(x, a, h0)
+    torch.cuda.synchronize()
+    assert rc.launch_counts["rg_lru"] == before + 1
+    assert hs.dtype == x.dtype and hl.dtype == torch.float32
+    rtol = {"float32": 0.0, "bfloat16": 2 ** -7, "float16": 2 ** -10}[dtype]
+    torch.testing.assert_close(hs.float(), want_s.float(), atol=1e-5,
+                               rtol=rtol)
+    torch.testing.assert_close(hl, want_l, atol=1e-5, rtol=0)
+
+
+MLSTM_CASES = [
+    # (BH, S, d, gate offsets (i, f))
+    (2, 128, 64, (0.0, 2.0)), (1, 100, 32, (0.0, 2.0)),
+    (4, 64, 16, (0.0, 2.0)), (1, 256, 64, (0.0, 2.0)),
+    (2, 40, 512, (0.0, 2.0)), (1, 130, 512, (0.0, 2.0)),
+    (2, 150, 64, (-30.0, 2.0)),       # strongly negative input gates
+    (2, 150, 64, (0.0, 60.0)),        # forget gates near 1
+    (1, 1, 16, (0.0, 2.0)),
+]
+
+
+def _mlstm_inputs(case, dtype, seed):
+    BH, S, d, (i_off, f_off) = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((BH, S, d), generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    ig = torch.randn((BH, S), generator=g, device="cuda") + i_off
+    fg = torch.randn((BH, S), generator=g, device="cuda") + f_off
+    return q, k, v, ig.to(dt), fg.to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=str)
+def test_mlstm_kernel_matches_plain_version_on_card(case, dtype):
+    """float32: h within 5e-4 of max|h|, C within 1e-3, m within 1e-4
+    (the JAX package's own chunkwise-vs-sequential tolerance).
+    bfloat16: the kernel scales q and k in bfloat16 as the Pallas wrapper
+    does, the plain version in f32 — one rounding of each (2^-9), so h
+    within 1e-2 of max|h| and C, n within 1e-2 of their largest."""
+    _need_card()
+    from repro_torch.kernels import mlstm as ml
+
+    q, k, v, ig, fg = _mlstm_inputs(case, dtype, seed=len(str(case)))
+    before = rc.launch_counts["mlstm_chunkwise"]
+    h, (C, n, m) = ml.mlstm_chunkwise(q, k, v, ig, fg)
+    hr, (Cr, nr, mr) = ref.mlstm_ref(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    assert rc.launch_counts["mlstm_chunkwise"] == before + 1
+    assert h.dtype == q.dtype and C.dtype == torch.float32
+    for t in (h, C, n, m):
+        assert torch.isfinite(t.float()).all()
+    f32 = dtype == "float32"
+    scale = float(hr.float().abs().max()) + 1e-9
+    assert float((h.float() - hr.float()).abs().max()) / scale \
+        < (5e-4 if f32 else 1e-2)
+    if f32:
+        torch.testing.assert_close(C, Cr, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(n, nr, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(m, mr, atol=1e-4, rtol=0)
+    else:
+        for got, want in ((C, Cr), (n, nr)):
+            top = float(want.abs().max()) + 1e-9
+            assert float((got - want).abs().max()) / top < 1e-2
+        torch.testing.assert_close(m, mr, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_recurrence_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import rg_lru as rl
+
+    x = torch.zeros((1, 4, 8), device="cuda")
+    with pytest.raises(ValueError):                  # mixed dtypes
+        rl.rg_lru(x, x.bfloat16())
+    with pytest.raises(ValueError):                  # h0 not float32
+        rl.rg_lru(x, x, torch.zeros((1, 8), device="cuda").half())
+    q = torch.zeros((2, 4, 2048), device="cuda")
+    g = torch.zeros((2, 4), device="cuda")
+    with pytest.raises(ValueError):                  # head dim > 1024
+        ml.mlstm_chunkwise(q, q, q, g, g)
+    q = torch.zeros((2, 4, 64), device="cuda")
+    with pytest.raises(ValueError):                  # gate shape
+        ml.mlstm_chunkwise(q, q, q, g[:, :3], g[:, :3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m"])
+def test_recurrent_model_fused_matches_composite_on_card(arch):
+    """Two layers of each family (head dim 64 for the flash kernel),
+    float32 compute: the fused prefill through the kernels and the
+    composite one through the plain versions agree within 1e-3, and so
+    do 4 decode steps from each state."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.models.parallel import Parallel
+
+    n_layers = 3 if arch == "recurrentgemma_2b" else 2
+    cfg = get_config(arch).reduced(n_layers=n_layers, head_dim=64,
+                                   dtype="float32")
+    par = Parallel()
+    params = zoo.init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                           device="cuda", dtype=torch.int32)
+    before = dict(rc.launch_counts)
+    st_f, lg_f = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="fused")
+    kernel = "rg_lru" if arch == "recurrentgemma_2b" else "mlstm_chunkwise"
+    assert rc.launch_counts[kernel] > before[kernel]
+    st_c, lg_c = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="composite")
+    torch.testing.assert_close(lg_f, lg_c, atol=1e-3, rtol=1e-3)
+    for a, b in zip(pytree.tree_leaves(st_f), pytree.tree_leaves(st_c)):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-3,
+                                   rtol=1e-3)
+    tok = lg_f.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(4):
+        st_f, lf = T.decode_step(params, cfg, par, st_f, tok)
+        st_c, lc = T.decode_step(params, cfg, par, st_c, tok)
+        torch.testing.assert_close(lf, lc, atol=1e-3, rtol=1e-3)
+        tok = lf.argmax(-1)[:, None].to(torch.int32)

@@ -52,7 +52,11 @@ def test_package_has_the_slice_modules():
                 "configs/qwen2_1_5b.py", "serving/cache.py",
                 "serving/workload.py", "serving/router.py",
                 "serving/elastic.py", "serving/decode.py",
-                "runtime/fault_tolerance.py"):
+                "runtime/fault_tolerance.py", "kernels/rg_lru.py",
+                "kernels/csrc/rg_lru.cu", "kernels/mlstm.py",
+                "kernels/csrc/mlstm.cu", "models/device.py",
+                "models/rglru.py", "models/ssm.py",
+                "configs/recurrentgemma_2b.py", "configs/xlstm_350m.py"):
         assert (PORT / mod).is_file(), mod
 
 
@@ -93,16 +97,20 @@ def test_place_group_defaults_to_the_card():
 def test_kernel_build_needs_no_card_to_import():
     # importing the kernel modules builds nothing; the build happens at
     # the first launch on a CUDA tensor
-    from repro_torch.kernels import cuda_build, flash_attention, reloc_codec
+    from repro_torch.kernels import (cuda_build, flash_attention, mlstm,
+                                     reloc_codec, rg_lru)
 
-    for mod in (reloc_codec, flash_attention):
+    mods = (reloc_codec, flash_attention, rg_lru, mlstm)
+    for mod in mods:
         assert mod.LIBRARY._lib is None or torch.cuda.is_available()
     # one registry counts every kernel of the port
     assert reloc_codec.launch_counts is cuda_build.launch_counts
-    assert set(cuda_build.launch_counts) == set(reloc_codec.KERNELS) | set(
-        flash_attention.KERNELS)
+    assert set(cuda_build.launch_counts) == set().union(
+        *(mod.KERNELS for mod in mods))
     assert flash_attention.SOURCE == \
         "src/repro_torch/kernels/csrc/flash_attention.cu"
+    assert rg_lru.SOURCE == "src/repro_torch/kernels/csrc/rg_lru.cu"
+    assert mlstm.SOURCE == "src/repro_torch/kernels/csrc/mlstm.cu"
 
 
 def test_serving_entry_points_default_to_the_card():

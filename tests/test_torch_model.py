@@ -87,12 +87,19 @@ def setup():
 
 
 def test_configs_are_the_reference_configs():
+    from repro_torch.configs import PORTED
+
     assert ARCH_IDS == J_ARCH_IDS
+    assert PORTED == ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m")
     assert _same(get_config("qwen2-1.5b"), j_get_config("qwen2_1_5b"))
+    for name in PORTED:
+        assert _same(get_config(name), j_get_config(name))
+        assert _same(get_config(name).reduced(), j_get_config(name).reduced())
     assert _same(serving_config(n_layers=3), j_serving_config(n_layers=3))
-    for name in ARCH_IDS[1:]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    for name in ARCH_IDS:
+        if name not in PORTED:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_config(name)
     with pytest.raises(KeyError):
         get_config("gpt2")
 
@@ -262,7 +269,18 @@ def test_unported_pieces_raise():
         TA.seq_parallel_decode_attention()
     from repro_torch.models.config import LayerSlot
 
-    moe = dataclasses.replace(serving_config(),
-                              pattern=(LayerSlot("attn_global", "moe"),))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        zoo.init_params(moe, 0, device="cpu")
+    base = serving_config()
+    unported = {
+        "mla": dataclasses.replace(
+            base, pattern=(LayerSlot("mla", "dense"),)),
+        "moe": dataclasses.replace(
+            base, pattern=(LayerSlot("attn_global", "moe"),)),
+        "enc-dec": dataclasses.replace(base, is_encoder_decoder=True,
+                                       encoder_layers=2),
+    }
+    assert unported["enc-dec"].is_encoder_decoder
+    for cfg in unported.values():
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            zoo.init_params(cfg, 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            T.init_decode_state(cfg, 1, 8, device="cpu")
