@@ -24,11 +24,13 @@ each hand-written kernel against its plain PyTorch version:
   prefill shape (q 4 x 12 x 4096 x 128, k and v 4 x 2 x 4096 x 128,
   bfloat16, causal; timed beside its bound, ``flash_ref`` and
   ``scaled_dot_product_attention``) and over a sweep of head dims 64 /
-  128 / 256, GQA groups 1 / 6 / 8, causal and not, a window, a softcap,
-  ragged lengths, ``Sq = 1``, fully masked rows and recurrentgemma-2b's
-  local attention (head dim 256, group 10, causal window 2048), in
+  128 / 192 / 256, GQA groups 1 / 6 / 8, causal and not, a window, a
+  softcap, ragged lengths, ``Sq = 1``, fully masked rows,
+  recurrentgemma-2b's local attention (head dim 256, group 10, causal
+  window 2048) and deepseek-v2-lite's MLA (head dim 192, 16 heads), in
   float32 (within 1e-4), bfloat16 and float16 (within 2e-2 absolute and
-  relative);
+  relative); also timed at deepseek's prefill shape (4 x 16 x 4096 x
+  192, bfloat16, causal);
 * phase 5: qwen2-1.5B (28 layers, full width, random weights from a
   seed) ``prefill_forward`` on 4 prompts of 4096 tokens through the
   flash kernel (``fused``) and through ``flash_ref`` (``composite``),
@@ -60,11 +62,36 @@ each hand-written kernel against its plain PyTorch version:
   ``flash_attention`` 8 times, ``mlstm_chunkwise`` 21 times;
 * phase 10: phase 6's serving runtime over recurrentgemma-2b (16
   rounds): each ``SeqKV`` holds the local-attention ring caches and the
-  RG-LRU hidden state and conv tail of its sequence.
+  RG-LRU hidden state and conv tail of its sequence;
+* phase 11: ``gather_rows`` and ``moe_combine`` against their plain
+  versions at deepseek-v2-lite's prefill shapes (x 16 385 x 2048 into
+  122 880 expert-buffer rows; y 122 880 x 2048 back to 16 384 tokens,
+  top-6; bfloat16) and decode shapes, and over a sweep (float32,
+  bfloat16, float16; unaligned rows, M = 0, N = 1, repeated indices,
+  K = 1 and 8, every slot -1): the gather equal, the combine within
+  the tolerance stated at ``combine_close``; each timed beside its byte
+  bound, its plain version and, for the gather, ``index_select``;
+* phase 12: deepseek-v2-lite-16b (MLA + MoE: 27 layers, d_model 2048,
+  64 experts top-6 + 2 shared; random weights from a seed; 4 prompts of
+  4096 tokens).  At depth 4 (the dense first layer and 3 MoE layers) in
+  float32, fused vs composite within 1e-3 except in sequences where the
+  two runs' routers chose differently at a near tie (margin between the
+  6th and 7th probabilities at most 1e-5; such flips are reported, a
+  flip at a wider margin fails), and bfloat16 against that float32 run
+  as in phase 5.  At full depth in bfloat16, parameters drawn in the
+  compute dtype: the fused prefill launches ``flash_attention`` 27 and
+  ``gather_rows`` and ``moe_combine`` 26 times each, every result is
+  finite, layer 1's latent cache agrees within 1e-2 (relative L2) and
+  the first MoE layer's routed output on one input within one bfloat16
+  ulp, then 32 decode steps from each state;
+* phase 13: phase 6's serving runtime over deepseek-v2-lite-16b (16
+  rounds): each ``SeqKV`` holds 27 latent caches (1024 x (512 + 64)
+  bfloat16 and positions), and every decode step launches both MoE
+  kernels.
 
 The launch counts are set to 0 just before each main path (phases 2-3,
-5, 6, 8, 9 and 10) and read just after; a path that launched none of
-its kernels fails.  Every check raises on failure (a phase logs all its
+5, 6, 8, 9, 10, 12 and 13) and read just after; a path that launched
+none of its kernels fails.  Every check raises on failure (a phase logs all its
 comparisons first).  The output ends with each
 phase's wall time and peak memory, the card's name and power limit, a
 ``kernels`` JSON line and, as the last line, ``{"ok": true, "device":
@@ -637,6 +664,7 @@ def phase_glb_checks(shift, col_dev, res_dev, report):
 # phase 4: the flash-attention kernel against flash_ref
 # ---------------------------------------------------------------------------
 QWEN_PREFILL = (4, 12, 2, 4096, 4096, 128)        # B, Hq, Hkv, Sq, Skv, D
+DEEPSEEK_PREFILL = (4, 16, 16, 4096, 4096, 192)   # MLA: qk 128 + 64
 
 # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap)
 FLASH_SWEEP = [
@@ -648,6 +676,10 @@ FLASH_SWEEP = [
     (1, 8, 1, 1, 1000, 64, False, None, 0.0),
     (1, 12, 2, 1000, 300, 128, True, 64, 0.0),        # rows >= 363 masked
     (1, 10, 1, 2500, 2500, 256, True, 2048, 0.0),     # recurrentgemma-2b
+    (2, 16, 16, 1000, 1000, 192, True, None, 0.0),    # deepseek's MLA
+    (1, 16, 16, 777, 777, 192, False, None, 0.0),     # ragged, not causal
+    (2, 16, 16, 1, 1000, 192, True, None, 0.0),       # Sq = 1
+    (1, 16, 16, 1000, 300, 192, True, 64, 0.0),       # rows >= 363 masked
 ]
 FLASH_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2),
              "float16": (2e-2, 2e-2)}
@@ -675,7 +707,6 @@ def flash_close(got, want, dtype, what):
 
 def phase_flash(report):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -698,13 +729,30 @@ def phase_flash(report):
             sweep.append({"case": list(case), "dtype": dtype,
                           "max_abs_err": err})
     report["flash_sweep"] = sweep
+    out = flash_at(gen, QWEN_PREFILL, "qwen2 prefill shape")
+    out["sweep_max_abs_err"] = {dt: max(r["max_abs_err"] for r in sweep
+                                        if r["dtype"] == dt)
+                                for dt in FLASH_TOL}
+    report["flash"] = out
+    report["flash_d192"] = flash_at(gen, DEEPSEEK_PREFILL,
+                                    "deepseek prefill shape")
+    return out
 
-    B, Hq, Hkv, Sq, Skv, D = QWEN_PREFILL
-    q, k, v = flash_inputs(gen, QWEN_PREFILL, "bfloat16")
+
+def flash_at(gen, shape, what):
+    """The kernel against ``flash_ref`` at one prefill shape (bfloat16,
+    causal), timed beside its bound, ``flash_ref`` and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, Hq, Hkv, Sq, Skv, D = shape
+    q, k, v = flash_inputs(gen, shape, "bfloat16")
     got = fa.flash_attention(q, k, v, causal=True)
     want = ref.flash_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
-    err = flash_close(got, want, "bfloat16", "qwen2 prefill shape")
+    err = flash_close(got, want, "bfloat16", what)
     del got, want
     flops = fa.attention_flops(B, Hq, Sq, Skv, D, causal=True, window=None)
     nbytes = 2 * (q.nelement() + k.nelement() + v.nelement()
@@ -723,15 +771,11 @@ def phase_flash(report):
         "bound_ms": bound * 1e3, "flops": flops, "bytes": nbytes,
         "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
         >= nbytes / HBM_BYTES_PER_S else "bytes",
-        "max_abs_err": err,
-        "sweep_max_abs_err": {dt: max(r["max_abs_err"] for r in sweep
-                                      if r["dtype"] == dt)
-                              for dt in FLASH_TOL}}
-    log(f"[flash] {out['ms']:.3f} ms (bound {out['bound_ms']:.3f}, plain "
-        f"{out['plain_ms']:.3f}, sdpa {out['library_ms']:.3f})")
+        "max_abs_err": err}
+    log(f"[flash {what}] {out['ms']:.3f} ms (bound {out['bound_ms']:.3f}, "
+        f"plain {out['plain_ms']:.3f}, sdpa {out['library_ms']:.3f})")
     del q, k, v
     torch.cuda.empty_cache()
-    report["flash"] = out
     return out
 
 
@@ -905,6 +949,168 @@ def phase_recurrence_kernels(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the MoE dispatch kernels against their plain versions
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite's MoE at 4 x 4096 tokens: T tokens, E experts, top-K,
+# d_model; capacity int(1.25 * T * K / E) = 1920 rows an expert
+MOE_PREFILL = (16384, 64, 6, 2048)
+MOE_DECODE = (4, 64, 6, 2048)           # B = 4: capacity min(T, 64) = 4
+# gather (N, M, D): aligned and unaligned rows, M = 0, N = 1, repeats
+GATHER_SWEEP = [(300, 500, 2048), (50, 64, 24), (37, 100, 13), (1, 9, 24),
+                (20, 0, 24), (4097, 2048, 2048)]
+# combine (T, K, S, D): K = 1 and 8, unaligned D
+COMBINE_SWEEP = [(200, 6, 640, 2048), (33, 1, 40, 24), (50, 8, 400, 24),
+                 (17, 6, 60, 13)]
+
+
+def moe_tables(gen, shape):
+    """A routing of ``shape``'s tokens as the main path makes it (top-K
+    of random router scores, capacity dispatch): the gather's (x, src)
+    and the combine's (y, slots, weights), bfloat16 rows."""
+    import torch
+    from repro_torch.models import moe as M
+
+    T, E, K, D = shape
+    cap = max(int(1.25 * T * K / E), min(T, 64))
+    scores = torch.randn((T, E), generator=gen, device=DEV)
+    w, idx = torch.softmax(scores, -1).topk(K, dim=-1)
+    src, slot = M.dispatch_tables(idx.to(torch.int32), E, cap)
+    x = torch.randn((T + 1, D), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    x[T] = 0                                      # the empty rows' source
+    y = torch.randn((E * cap, D), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    return x, src, y, slot.view(T, K).to(torch.int32), w / w.sum(-1,
+                                                                 keepdim=True)
+
+
+def ulp(x, dtype):
+    """One unit in the last place of ``x`` in a 16-bit ``dtype``."""
+    import torch
+    bits = {"bfloat16": 8, "float16": 11}[dtype]
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - (bits - 1))
+
+
+def combine_close(gate, got, want, y, slots, w, dtype, what):
+    """The kernel and the plain version both sum the K products in f32,
+    in their own order: within 1e-6 of the row's largest |w * y| term;
+    a 16-bit output adds one ulp of its own rounding."""
+    import torch
+    ok = slots >= 0
+    terms = (w[:, :, None] * y[slots.clamp(min=0).long()].float()
+             * ok[:, :, None]).abs().amax(dim=(1, 2)) \
+        if slots.numel() else w.new_zeros(slots.shape[0])
+    err = (got.float() - want.float()).abs()
+    tol = 1e-6 * terms[:, None]
+    if dtype != "float32":
+        tol = tol + ulp(torch.maximum(got.float().abs(),
+                                      want.float().abs()), dtype)
+    gate.check(bool(torch.isfinite(got.float()).all())
+               and bool((err <= tol).all()),
+               f"moe_combine {what} {dtype}: max|err| "
+               f"{float(err.max()) if err.numel() else 0.0}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_moe_kernels(report):
+    """gather_rows and moe_combine against their plain versions at
+    deepseek's prefill and decode shapes and over a sweep, in float32,
+    bfloat16 and float16; each timed at the prefill shape."""
+    import torch
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    gate = Gate("moe kernels")
+    sweep = []
+    for shape in (MOE_PREFILL, MOE_DECODE):
+        x, src, y, slots, w = moe_tables(gen, shape)
+        got = md.gather_rows(x, src)
+        gate.check(torch.equal(got, ref.gather_rows_ref(x, src)),
+                   f"gather_rows at {shape}")
+        got = md.moe_combine(y, slots, w)
+        want = ref.moe_combine_ref(y, slots, w)
+        torch.cuda.synchronize()
+        sweep.append({"kernel": "moe_combine", "case": list(shape),
+                      "dtype": "bfloat16", "max_abs_err": combine_close(
+                          gate, got, want, y, slots, w, "bfloat16",
+                          str(shape))})
+        del x, src, y, slots, w, got, want
+    for dtype in ("float32", "bfloat16", "float16"):
+        dt = torch_dtype(dtype)
+        for N, M, D in GATHER_SWEEP:
+            x = torch.randn((N, D), generator=gen, device=DEV).to(dt)
+            idx = torch.randint(0, N, (M,), generator=gen, device=DEV,
+                                dtype=torch.int32)
+            if N > 1000:
+                idx = idx % 7                     # mostly repeated rows
+            got = md.gather_rows(x, idx)
+            torch.cuda.synchronize()
+            gate.check(torch.equal(got, ref.gather_rows_ref(x, idx)),
+                       f"gather_rows {(N, M, D)} {dtype}")
+        for Tn, K, S, D in COMBINE_SWEEP:
+            y = torch.randn((S, D), generator=gen, device=DEV).to(dt)
+            w = torch.rand((Tn, K), generator=gen, device=DEV)
+            for lo in (-1, -S):                   # some dropped; all
+                slots = torch.randint(lo, S, (Tn, K), generator=gen,
+                                      device=DEV, dtype=torch.int32)
+                if lo == -S:
+                    slots = slots.clamp(max=-1)
+                got = md.moe_combine(y, slots, w)
+                want = ref.moe_combine_ref(y, slots, w)
+                torch.cuda.synchronize()
+                sweep.append({"kernel": "moe_combine",
+                              "case": [Tn, K, S, D, lo], "dtype": dtype,
+                              "max_abs_err": combine_close(
+                                  gate, got, want, y, slots, w, dtype,
+                                  str((Tn, K, S, D, lo)))})
+    torch.cuda.empty_cache()
+    report["moe_sweep"] = sweep
+    gate.close()
+
+    x, src, y, slots, w = moe_tables(gen, MOE_PREFILL)
+    T, E, K, D = MOE_PREFILL
+    item = x.element_size()
+    rows_read = int((slots >= 0).sum())
+    out = {}
+    # each input byte read once (the distinct rows the table names),
+    # each output byte written once
+    nbytes = (int(torch.unique(src).numel()) * D * item + src.nbytes
+              + src.numel() * D * item)
+    out["gather_rows"] = {
+        "shape": f"x ({T + 1}, {D}) bfloat16, idx ({src.numel()},) int32",
+        "ms": cuda_ms(lambda: md.gather_rows(x, src)),
+        "plain_ms": cuda_ms(lambda: ref.gather_rows_ref(x, src)),
+        "library_ms": cuda_ms(lambda: torch.index_select(x, 0, src)),
+        "library_call": "torch.index_select(x, 0, idx)",
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes, "bound_by": "bytes",
+        "max_abs_err": 0.0}
+    nbytes = (rows_read * D * item + T * D * item       # rows read, out
+              + slots.nbytes + w.nbytes)
+    out["moe_combine"] = {
+        "shape": f"y ({y.shape[0]}, {D}) bfloat16, slots and weights "
+                 f"({T}, {K}), {rows_read} slots live",
+        "ms": cuda_ms(lambda: md.moe_combine(y, slots, w)),
+        "plain_ms": cuda_ms(lambda: ref.moe_combine_ref(y, slots, w)),
+        "library_ms": None,
+        "library_call": "none: no one-call equivalent",
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes, "bound_by": "bytes",
+        "max_abs_err": max(r["max_abs_err"] for r in sweep
+                           if r["dtype"] == "bfloat16")}
+    out["moe_combine"]["sweep_max_abs_err"] = {
+        dt: max(r["max_abs_err"] for r in sweep if r["dtype"] == dt)
+        for dt in ("float32", "bfloat16", "float16")}
+    del x, src, y, slots, w
+    torch.cuda.empty_cache()
+    for name, t in out.items():
+        log(f"[{name}] {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} bytes, "
+            f"plain {t['plain_ms']:.3f}, library {t['library_ms']})")
+    report["moe_kernels"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 5, 8, 9: a language model's prefill and decode at full width and
 # depth
 # ---------------------------------------------------------------------------
@@ -963,6 +1169,18 @@ LM = {
         "bf16": ("mlstm_C_layer0",),
         "exact": (),
     },
+    # arXiv:2405.04434 and DeepSeek-V2-Lite's config.json (Hugging Face):
+    # 27 layers, d_model 2048, 16 heads, d_ff 10944, vocab 102400; MoE
+    # (64 routed experts top-6, 2 shared, d_ff 1408, first layer dense);
+    # MLA (kv_lora 512, qk 128 + 64, v 128); phase 12 drives it
+    "deepseek": {
+        "config": "deepseek_v2_lite_16b",
+        "widths": (27, 2048, 16, 16, 128, 10944, 102400),
+        "moe_mla": (64, 6, 2, 1408, 1, 512, 0, 128, 64, 128),
+        "batch": 4, "prompt": 4096, "s_cache": 4160,
+        "launches": {"flash_attention": 27, "gather_rows": 26,
+                     "moe_combine": 26},
+    },
 }
 
 
@@ -975,21 +1193,37 @@ def lm_config(key):
     require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
              cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded)
             == spec["widths"], f"{cfg.name} config")
+    if "moe_mla" in spec:
+        require((cfg.n_experts, cfg.top_k, cfg.n_shared_experts,
+                 cfg.d_ff_expert, cfg.first_dense_layers, cfg.kv_lora_rank,
+                 cfg.q_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                 cfg.v_head_dim) == spec["moe_mla"],
+                f"{cfg.name} MoE / MLA config")
     slots = [s.mixer for s in cfg.layer_slots()]
-    per_kernel = {"flash_attention": sum(m.startswith("attn")
+    n_moe = [s.ffn for s in cfg.layer_slots()].count("moe")
+    per_kernel = {"flash_attention": sum(m.startswith(("attn", "mla"))
                                          for m in slots),
                   "rg_lru": slots.count("rec"),
-                  "mlstm_chunkwise": slots.count("mlstm")}
+                  "mlstm_chunkwise": slots.count("mlstm"),
+                  "gather_rows": n_moe, "moe_combine": n_moe}
     require({k: v for k, v in per_kernel.items() if v} == spec["launches"],
             f"{cfg.name}: layer slots {per_kernel} != {spec['launches']}")
     return cfg
 
 
-def lm_params(cfg):
-    """f32 master parameters from the seed, and their bf16 compute cast
-    (made once)."""
+def lm_params(cfg, master=True):
+    """f32 master parameters from the seed and their compute cast (made
+    once); or, with ``master=False``, only the compute parameters, drawn
+    in the compute dtype: the same values without the f32 copy (a full
+    deepseek-v2-lite is 63 GB in f32)."""
+    import dataclasses
+
     from repro_torch.models import transformer as T
     from repro_torch.models import zoo
+    if not master:
+        return None, T.cast_params(zoo.init_params(
+            dataclasses.replace(cfg, param_dtype=cfg.dtype), SEED,
+            device=DEV), cfg)
     master = zoo.init_params(cfg, SEED, device=DEV)
     return master, T.cast_params(master, cfg)
 
@@ -1050,7 +1284,7 @@ def prefill(cfg, params, tokens, impl, s_cache):
     return st, lg, time.perf_counter() - t0
 
 
-def decode(cfg, params, st, follow):
+def decode(cfg, params, st, follow, impl=None):
     """Teacher-forced decode of ``follow`` (steps, B, 1) from ``st``;
     returns the logits of every step and the median ms per step."""
     import torch
@@ -1061,7 +1295,7 @@ def decode(cfg, params, st, follow):
     for tok in follow:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, lg = T.decode_step(params, cfg, Parallel(), st, tok)
+        st, lg = T.decode_step(params, cfg, Parallel(), st, tok, impl=impl)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         logits.append(lg)
@@ -1168,9 +1402,312 @@ def phase_lm(key, report, main_launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: deepseek-v2-lite-16b prefill and decode
+# ---------------------------------------------------------------------------
+GATE_DEPTH = 4          # the dense first layer and 3 MoE layers
+NEAR_TIE = 1e-5         # router margin at or under which a flip is no fault
+FLIPS_LISTED = 20
+
+
+class RouterLog:
+    """While entered, records every routing decision of the MoE layers
+    of ``cfg``: for each call, the experts each token chose and those
+    whose capacity kept it (both (T, E) masks), and its router margin,
+    the k-th minus the (k+1)-th probability."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.relocation import _pack_slots
+        from repro_torch.models import moe as M
+
+        self.calls, self._mod, self._route = [], M, M.route
+
+        def route(p, x, top_k, *, n_experts):
+            w, idx, aux = self._route(p, x, top_k, n_experts=n_experts)
+            T = idx.shape[0]
+            probs = torch.softmax(x.float() @ p["w"]["w"].float(), dim=-1)
+            top = probs.topk(top_k + 1, dim=-1).values
+            _, keep = _pack_slots(idx.reshape(1, -1), n_experts,
+                                  M.moe_capacity(self.cfg, T))
+            chose = torch.zeros((T, n_experts), dtype=torch.bool,
+                                device=idx.device)
+            kept = chose.clone()
+            chose.scatter_(1, idx.long(), True)
+            kept.scatter_(1, idx.long(), keep.view(T, top_k))
+            self.calls.append((chose, kept,
+                               top[:, top_k - 1] - top[:, top_k]))
+            return w, idx, aux
+
+        M.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+        return False
+
+
+def router_flips(gate, fused, plain, batch, n_moe, first, touched, what):
+    """Tokens whose expert sets differ between two runs, call by call.
+
+    A token of a sequence no earlier flip has touched is held to the
+    plain run's router margin: a flip at a margin above ``NEAR_TIE`` is a
+    fault; at or under it, it is a near tie of two sums taken in
+    different orders, and the sequence is touched from then on (its rows
+    from that token on, and its later layers and decode steps, may
+    differ by O(1)).  Flips inside touched sequences are counted as
+    downstream.  A flip also shifts the capacity ranks of the tokens
+    after it in the flattened batch: a token that chose the same experts
+    but was kept by other ones ("knocked") is allowed after a flip of
+    the same call, touches its sequence, and is a fault otherwise.
+    Returns {layer: {"differ", "downstream", "knocked", "near_ties"}}."""
+    require(len(fused.calls) == len(plain.calls),
+            f"{what}: {len(fused.calls)} vs {len(plain.calls)} router calls")
+    out = {}
+    for c, ((fc, fk, _), (pc, pk, margin)) in enumerate(zip(fused.calls,
+                                                            plain.calls)):
+        layer = out.setdefault(first + c % n_moe, {
+            "differ": 0, "downstream": 0, "knocked": 0, "near_ties": []})
+        differ = (fc != pc).any(dim=-1)
+        rows = differ.nonzero()[:, 0].tolist()
+        knocked = (~differ & (fk != pk).any(dim=-1)).nonzero()[:, 0].tolist()
+        per = fc.shape[0] // batch
+        new = set()
+        layer["differ"] += len(rows)
+        layer["knocked"] += len(knocked)
+        for t in knocked:
+            gate.check(bool(rows) and t > rows[0],
+                       f"{what}: layer {first + c % n_moe}, step "
+                       f"{c // n_moe}: token {t} kept by other experts "
+                       "with no flip before it")
+            new.add(t // per)
+        for t in rows:
+            b = t // per
+            if b in touched:
+                layer["downstream"] += 1
+                continue
+            m = float(margin[t])
+            gate.check(m <= NEAR_TIE,
+                       f"{what}: layer {first + c % n_moe}, step "
+                       f"{c // n_moe}: sequence {b} token {t % per} took "
+                       f"other experts at router margin {m} > {NEAR_TIE}")
+            if len(layer["near_ties"]) < FLIPS_LISTED:
+                layer["near_ties"].append({"step": c // n_moe, "seq": b,
+                                           "token": t % per, "margin": m})
+            new.add(b)
+        touched |= new
+    return out
+
+
+def phase_deepseek(report, main_launches):
+    """deepseek-v2-lite-16b at published widths, random weights.
+
+    Depth 4, float32: fused vs composite within 1e-3 (prefill logits,
+    latent caches, 32 decode steps on each path's backend) in every
+    sequence no router near tie has touched; bfloat16 at depth 4 held
+    against that float32 run as in phase 5.  Full depth, bfloat16 (the
+    main path, parameters drawn in the compute dtype): the counted fused
+    prefill, the composite one, 32 decode steps from each; no float32
+    run fits beside it, so the checks are finiteness, the launch counts,
+    layer 1's latent cache (the first downstream of a flash launch)
+    within 1e-2 in relative L2, and the first MoE layer's routed output
+    on one input through both paths within one bfloat16 ulp."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import Parallel
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm
+    from torch.utils import _pytree as pytree
+
+    spec = LM["deepseek"]
+    cfg = lm_config("deepseek")
+    B, S, s_cache = spec["batch"], spec["prompt"], spec["s_cache"]
+    first = cfg.first_dense_layers
+    gate = Gate("deepseek")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    out = {"config": cfg.name, "batch": B, "prompt": S, "s_cache": s_cache,
+           "decode_steps": DECODE_STEPS, "gate_depth": GATE_DEPTH,
+           "near_tie": NEAR_TIE}
+    times = {}
+    ckv = _slot(0, "ckv")
+    krope = _slot(0, "krope")
+
+    # depth 4, f32: kernel vs plain version, the truth of the bf16 runs
+    t0 = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, n_layers=GATE_DEPTH)
+    c32 = dataclasses.replace(cfg4, dtype="float32")
+    n_moe = GATE_DEPTH - first
+    master, params4 = lm_params(cfg4)
+    with RouterLog(c32) as rf:
+        st_f, lg_f, wall_f = prefill(c32, master, tokens, "fused", s_cache)
+    with RouterLog(c32) as rc:
+        st_c, lg_c, wall_fc = prefill(c32, master, tokens, "composite",
+                                      s_cache)
+    touched = set()
+    flips = {"prefill": router_flips(gate, rf, rc, B, n_moe, first, touched,
+                                     "f32 prefill")}
+    f32_prefill_calls = rc.calls
+    follow, st = [], st_f
+    tok = lg_f.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(DECODE_STEPS):
+        follow.append(tok)
+        st, lg = T.decode_step(master, c32, Parallel(), st, tok,
+                               impl="fused")
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    del st
+    with RouterLog(c32) as rf:
+        dl_f, ms32 = decode(c32, master, st_f, follow, "fused")
+    with RouterLog(c32) as rc:
+        dl_c, _ = decode(c32, master, st_c, follow, "composite")
+    flips["decode"] = router_flips(gate, rf, rc, B, n_moe, first, touched,
+                                   "f32 decode")
+    held = [b for b in range(B) if b not in touched]
+    gate.check(bool(held), "every sequence touched by a router near tie")
+    rows = torch.tensor(held, device=DEV, dtype=torch.long)
+    e32 = {}
+    for name, a, b, axis in (
+            ("prefill_logits", lg_f, lg_c, 0),
+            ("prefix_ckv", st_f["prefix"][0]["ckv"],
+             st_c["prefix"][0]["ckv"], 0),
+            ("ckv", ckv(st_f), ckv(st_c), 1),
+            ("krope", krope(st_f), krope(st_c), 1),
+            ("decode_logits", dl_f, dl_c, 1)):
+        e32[name] = f32_close(gate, a.index_select(axis, rows),
+                              b.index_select(axis, rows), name)
+    gate.check(torch.equal(_slot(0, "pos")(st_f), _slot(0, "pos")(st_c)),
+               "cache positions")
+    truth = {"prefill_logits": lg_c, "decode_logits": dl_c,
+             "ckv": ckv(st_c)}
+    out["float32"] = {"max_abs_err": e32, "held_sequences": held,
+                      "router_flips": flips, "prefill_s": wall_f,
+                      "composite_prefill_s": wall_fc,
+                      "prefill_tokens_per_s": B * S / wall_f,
+                      "decode_ms_per_step": ms32}
+    times["float32_depth4_s"] = time.perf_counter() - t0
+    log(f"[deepseek f32 depth {GATE_DEPTH}] held sequences {held}, router "
+        f"flips {flips}, errors {e32}")
+    del st_f, st_c, lg_f, dl_f, master
+
+    # depth 4, bf16: both paths against the f32 run
+    t0 = time.perf_counter()
+    with RouterLog(cfg4) as rf:
+        st_f, lg_f, _ = prefill(cfg4, params4, tokens, "fused", s_cache)
+    with RouterLog(cfg4) as rc:
+        st_c, lg_c, _ = prefill(cfg4, params4, tokens, "composite", s_cache)
+    dl_f, _ = decode(cfg4, params4, st_f, follow, "fused")
+    dl_c, _ = decode(cfg4, params4, st_c, follow, "composite")
+    e16 = {"prefill_logits": bf16_close(gate, lg_f, lg_c,
+                                        truth["prefill_logits"],
+                                        "prefill logits"),
+           "ckv": bf16_close(gate, ckv(st_f), ckv(st_c), truth["ckv"],
+                             "ckv"),
+           "decode_logits": bf16_close(gate, dl_f, dl_c,
+                                       truth["decode_logits"],
+                                       "decode logits")}
+    out["bfloat16_depth4"] = {
+        "errors": e16,
+        # tokens routed differently from each other, layer by layer
+        "router_differ_fused_vs_composite": [
+            int((f[0] != c[0]).any(-1).sum())
+            for f, c in zip(rf.calls, rc.calls)],
+        "router_differ_vs_f32": [
+            int((f[0] != c[0]).any(-1).sum())
+            for f, c in zip(rc.calls, f32_prefill_calls)]}
+    times["bfloat16_depth4_s"] = time.perf_counter() - t0
+    log(f"[deepseek bf16 depth {GATE_DEPTH}] {out['bfloat16_depth4']}")
+    del st_f, st_c, lg_f, lg_c, dl_f, dl_c, truth, params4, rf, rc
+    del f32_prefill_calls
+    torch.cuda.empty_cache()
+
+    # full depth, bf16: the main path, counted from zero
+    t0 = time.perf_counter()
+    _, params = lm_params(cfg, master=False)
+    follow = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                            device=DEV, dtype=torch.int32)
+              for _ in range(DECODE_STEPS)]
+    cuda_build.reset_launch_counts()
+    st_f, lg_f, wall = prefill(cfg, params, tokens, "fused", s_cache)
+    main_launches.update(cuda_build.launch_counts)
+    st_c, lg_c, wall_c = prefill(cfg, params, tokens, "composite", s_cache)
+    dl_f, ms = decode(cfg, params, st_f, follow, "fused")
+    dl_c, ms_c = decode(cfg, params, st_c, follow, "composite")
+    for name, t in (("prefill logits", lg_f), ("composite prefill logits",
+                                               lg_c),
+                    ("decode logits", dl_f), ("composite decode logits",
+                                              dl_c)):
+        gate.check(bool(torch.isfinite(t).all()), f"{name} not finite")
+    for st_ in (st_f, st_c):
+        gate.check(all(bool(torch.isfinite(x.float()).all())
+                       for x in pytree.tree_leaves(st_)),
+                   "decode state not finite")
+    # layer 1's latent cache: its input differs from layer 0's flash
+    # launch by bf16 rounding, which compounds to a few ulps at the
+    # largest elements; a fault is O(1), so the gate is relative L2
+    l1f, l1c = ckv(st_f)[0].float(), ckv(st_c)[0].float()
+    err_l1 = float((l1f - l1c).abs().max())
+    rel_l1 = float((l1f - l1c).norm() / l1c.norm())
+    gate.check(bool(torch.isfinite(l1f).all()) and rel_l1 <= 1e-2,
+               f"layer 1 ckv: fused vs composite relative L2 {rel_l1} > "
+               f"1e-2 (max|err| {err_l1})")
+    # the first MoE layer (layer 1) on one input through both paths
+    p1 = pytree.tree_map(lambda a: a[0], params["scan"][0])
+    x1 = rmsnorm(p1["norm2"], params["embed"]["table"][tokens.long()],
+                 cfg.norm_eps).reshape(B * S, cfg.d_model)
+    w1, idx1, _ = M.route(p1["ffn"]["router"], x1, cfg.top_k,
+                          n_experts=cfg.n_experts)
+    cap = M.moe_capacity(cfg, B * S)
+    fb, fs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap, impl="fused")
+    cb, cs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap,
+                            impl="composite")
+    gate.check(torch.equal(fb, cb) and torch.equal(fs, cs),
+               "layer 1 dispatch buffers differ")
+    yf = M._expert_ffn(p1["ffn"]["experts"], fb).reshape(-1, cfg.d_model)
+    got = M.moe_combine(yf, fs, w1, impl="fused")
+    want = M.moe_combine(yf, cs, w1, impl="composite")
+    err_moe = combine_close(gate, got, want, yf, fs.view(B * S, -1).to(
+        torch.int32), w1, "bfloat16", "layer 1 routed output")
+    del p1, x1, fb, cb, yf, got, want
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    out["bfloat16"] = {
+        "prefill_s": wall, "composite_prefill_s": wall_c,
+        "prefill_tokens_per_s": B * S / wall,
+        "decode_ms_per_step": ms, "composite_decode_ms_per_step": ms_c,
+        "layer1_ckv_max_abs_err": err_l1, "layer1_ckv_rel_l2": rel_l1,
+        "layer1_routed_max_abs_err": err_moe,
+        "dropped_rows_layer1": int((fs < 0).sum()),
+        # reported, not gated: no f32 run of this depth fits the card
+        "logits_fused_vs_composite": {
+            "prefill_max": float((lg_f - lg_c).abs().max()),
+            "prefill_rel_l2": rel(lg_f, lg_c),
+            "decode_max": float((dl_f - dl_c).abs().max()),
+            "decode_rel_l2": rel(dl_f, dl_c)}}
+    times["bfloat16_s"] = time.perf_counter() - t0
+    out["times"] = times
+    r = out["bfloat16"]
+    log(f"[deepseek bf16] prefill {wall:.3f} s "
+        f"({r['prefill_tokens_per_s']:.0f} tok/s; composite {wall_c:.3f} "
+        f"s), decode {ms:.2f} ms/step (composite {ms_c:.2f}); {r}")
+    for name, n in spec["launches"].items():
+        gate.check(main_launches.get(name) == n,
+                   f"fused prefill launched {name} "
+                   f"{main_launches.get(name)} times, not {n}")
+    report["deepseek"] = out
+    del st_f, st_c, params
+    torch.cuda.empty_cache()
+    gate.close()
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 10: the elastic serving runtime at full width
 # ---------------------------------------------------------------------------
-SERVE_ROUNDS = {"qwen2": 32, "recurrentgemma": 16}
+SERVE_ROUNDS = {"qwen2": 32, "recurrentgemma": 16, "deepseek": 16}
 
 
 def phase_serving(report, main_launches, key="qwen2"):
@@ -1216,6 +1753,10 @@ def phase_serving(report, main_launches, key="qwen2"):
             f"{np.mean(fast)} of the fast ones")
     require(main_launches.get("reloc_pack_rows", 0) > 0,
             "KV migration never launched pack_rows")
+    if engine.cfg.is_moe:            # every decode step dispatches
+        for name in ("gather_rows", "moe_combine"):
+            require(main_launches.get(name, 0) > 0,
+                    f"serving decode never launched {name}")
     p95 = sim.window_p95()
     out = {"config": engine.cfg.name, "rounds": rounds, "wall_s": wall,
            "tokens_decoded": sim.tokens,
@@ -1286,7 +1827,7 @@ def profile_main_paths(shift, path):
         lambda: (run_windows(shift), main_path_glb(shift)), path)}
     for key, spec in LM.items():
         cfg = lm_config(key)
-        params = lm_params(cfg)[1]
+        params = lm_params(cfg, master=False)[1]
         tokens = torch.randint(0, cfg.vocab_size,
                                (spec["batch"], spec["prompt"]),
                                generator=torch.Generator(device=DEV)
@@ -1356,6 +1897,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import reloc_codec as rc
     from repro_torch.kernels import rg_lru as rl
 
@@ -1365,7 +1907,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = smi_line()
-    libraries = (rc.LIBRARY, fa.LIBRARY, rl.LIBRARY, ml.LIBRARY)
+    libraries = (rc.LIBRARY, fa.LIBRARY, rl.LIBRARY, ml.LIBRARY,
+                 md.LIBRARY)
     with Phase("build", report):
         paths = cuda_build.build_all(libraries)
         for lib in libraries:
@@ -1381,6 +1924,8 @@ def main(argv=None) -> int:
         times["flash_attention"] = phase_flash(report)
     with Phase("recurrence_kernels", report):
         times.update(phase_recurrence_kernels(report))
+    with Phase("moe_kernels", report):
+        times.update(phase_moe_kernels(report))
 
     # main path 1 (phases 2-3): every launch count from zero, read right
     # after
@@ -1423,6 +1968,14 @@ def main(argv=None) -> int:
     with Phase("recurrentgemma_serving", report):
         phase_serving(report, launches["recurrentgemma_serving"],
                       "recurrentgemma")
+    # main path 7 (phase 12): deepseek-v2-lite's fused prefill
+    launches["deepseek_prefill"] = {}
+    with Phase("deepseek_prefill_decode", report):
+        phase_deepseek(report, launches["deepseek_prefill"])
+    # main path 8 (phase 13): serving deepseek-v2-lite
+    launches["deepseek_serving"] = {}
+    with Phase("deepseek_serving", report):
+        phase_serving(report, launches["deepseek_serving"], "deepseek")
     report["launches"] = launches
     if args.profile:
         with Phase("profile", report):
@@ -1458,7 +2011,8 @@ def main(argv=None) -> int:
         print(json.dumps(rec))
     print(json.dumps({k: report[k] for k in (
         "qwen2", "serving", "recurrentgemma", "xlstm",
-        "recurrentgemma_serving")} | {"launches": launches}))
+        "recurrentgemma_serving", "deepseek", "deepseek_serving",
+        "flash_d192")} | {"launches": launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

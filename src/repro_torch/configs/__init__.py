@@ -3,9 +3,9 @@
 The same ten names as ``repro.configs``.  The port carries the config
 modules of the architectures whose mixers it has ported: ``qwen2_1_5b``
 (global attention + dense SwiGLU), ``recurrentgemma_2b`` (RG-LRU + local
-attention) and ``xlstm_350m`` (mLSTM + sLSTM).  The other seven come
-in later slices (ROADMAP.md queue 1, slice 4 and after); asking for one
-raises ``NotImplementedError``.
+attention), ``xlstm_350m`` (mLSTM + sLSTM) and ``deepseek_v2_lite_16b``
+(MLA + MoE).  The other six come in later slices (ROADMAP.md queue 1);
+asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ ARCH_IDS = [
 ]
 
 #: the configs whose every mixer the port runs
-PORTED = ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m")
+PORTED = ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m",
+          "deepseek_v2_lite_16b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -39,6 +40,6 @@ def get_config(name: str) -> ModelConfig:
     if key not in PORTED:
         raise NotImplementedError(
             f"{key} is not among the port's configs yet (ROADMAP.md queue "
-            "1, slice 4 and after)")
+            "1)")
     mod = importlib.import_module(f".{key}", __package__)
     return mod.CONFIG

@@ -721,6 +721,33 @@ def spmd_counts(dest: torch.Tensor, n_shards: int) -> torch.Tensor:
     return (dest.unsqueeze(-1) == shards).sum(-2).to(torch.int32)
 
 
+def _pack_slots(dest: torch.Tensor, n_shards: int, capacity: int):
+    """Where :func:`_pack_by_dest` puts each row, without moving any.
+
+    ``dest``: (P, n) destinations.  Returns (slot, keep): ``slot[p, i]``
+    is the flat buffer position ``dest * capacity + rank`` of row i of
+    shard p (``rank`` its stable order among the shard's rows with that
+    destination), or ``n_shards * capacity`` where ``keep`` is False (the
+    row overflows its destination's capacity)."""
+    P, n = dest.shape
+    dev = dest.device
+    dest = dest.to(torch.int64)
+    sort_idx = torch.argsort(dest, dim=1, stable=True)
+    sorted_dest = dest.gather(1, sort_idx)
+    counts = spmd_counts(dest, n_shards).to(torch.int64)
+    offsets = counts.cumsum(1) - counts
+    # out-of-range destinations read the last group's offset, as the
+    # JAX gather clamps; their slots fall past the buffer either way
+    pos_sorted = torch.arange(n, device=dev) \
+        - offsets.gather(1, sorted_dest.clamp(0, n_shards - 1))
+    rank = torch.zeros((P, n), dtype=torch.int64, device=dev) \
+        .scatter_(1, sort_idx, pos_sorted)
+    keep = rank < capacity
+    slot = torch.where(keep, dest * capacity + rank,
+                       torch.full_like(rank, n_shards * capacity))
+    return slot, keep
+
+
 def _pack_by_dest(x: torch.Tensor, dest: torch.Tensor, n_shards: int,
                   capacity: int):
     """Pack each shard's rows into a (P, n_shards, capacity, ...) send
@@ -735,21 +762,8 @@ def _pack_by_dest(x: torch.Tensor, dest: torch.Tensor, n_shards: int,
     """
     P, n = dest.shape
     dev = dest.device
-    dest = dest.to(torch.int64)
     flat = n_shards * capacity
-    sort_idx = torch.argsort(dest, dim=1, stable=True)
-    sorted_dest = dest.gather(1, sort_idx)
-    counts = spmd_counts(dest, n_shards).to(torch.int64)
-    offsets = counts.cumsum(1) - counts
-    # out-of-range destinations read the last group's offset, as the
-    # JAX gather clamps; their slots fall past the buffer either way
-    pos_sorted = torch.arange(n, device=dev) \
-        - offsets.gather(1, sorted_dest.clamp(0, n_shards - 1))
-    rank = torch.zeros((P, n), dtype=torch.int64, device=dev) \
-        .scatter_(1, sort_idx, pos_sorted)
-    keep = rank < capacity
-    slot = torch.where(keep, dest * capacity + rank,
-                       torch.full_like(rank, flat))
+    slot, keep = _pack_slots(dest, n_shards, capacity)
     put = torch.where((slot >= 0) & (slot < flat), slot,
                       torch.full_like(slot, flat))
     rows = torch.arange(P, device=dev)[:, None].expand(P, n)

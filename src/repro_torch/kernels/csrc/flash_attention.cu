@@ -33,8 +33,9 @@
 //
 // Two paths, chosen per call from what the inputs allow:
 //
-// * bf16 / f16 with D = 64 or 128 and 16-byte aligned rows (the
-//   prefill's case): the products run on the tensor cores, as
+// * bf16 / f16 with D = 64, 128 or 192 and 16-byte aligned rows (the
+//   prefills' case; 192 is MLA's qk_nope + qk_rope head, with V padded
+//   to it): the products run on the tensor cores, as
 //   mma.sync.m16n8k16 with f32 accumulation.  4 warps, each owning 16
 //   query rows; S = Q K^T stays in registers, where the online softmax
 //   reads it in the accumulator layout (rows g and g+8 of the warp's
@@ -46,6 +47,11 @@
 //   Q and K are row-major in shared memory, V transposed, each row
 //   padded by 16 bytes so the fragment loads hit 32 distinct banks.
 // * everything else (f32, D = 256, unaligned views): the CUDA-core path.
+//
+// Head dims 64, 128, 192 and 256 are instantiated.  At D = 192 a warp of
+// the tensor-core path holds 24 output accumulator tiles (96 floats a
+// thread) beside its 32 score registers, inside the 255 a thread that
+// 128-thread blocks leave.
 //
 // Bound on an H100 SXM: 4 * B * Hq * D * (visited q.k pairs) operations
 // at 989 TFLOP/s (bf16/f16 tensor-core peak; 67 TFLOP/s for f32 inputs)
@@ -567,6 +573,7 @@ int dispatch_d(const Params& p, long long D, cudaStream_t st) {
   switch (D) {
     case 64: return launch<T, 64>(p, st);
     case 128: return launch<T, 128>(p, st);
+    case 192: return launch<T, 192>(p, st);
     case 256: return launch<T, 256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -577,6 +584,7 @@ int dispatch_tc(const Params& p, long long D, cudaStream_t st) {
   if (rows_aligned16(p)) {
     if (D == 64) return launch_mma<T, 64>(p, st);
     if (D == 128) return launch_mma<T, 128>(p, st);
+    if (D == 192) return launch_mma<T, 192>(p, st);
   }
   return dispatch_d<T>(p, D, st);
 }

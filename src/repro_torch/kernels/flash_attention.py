@@ -10,10 +10,10 @@ Each launch adds one to ``launch_counts["flash_attention"]``.
 
 Supports GQA (``Hq % Hkv == 0``), causal masking (top-left), a sliding
 window (keys in ``(i - window, i]``), logit soft-capping and
-``sm_scale``; head dims 64, 128 and 256; float32, bfloat16 and float16.
-The kernel picks its path from the inputs: tensor-core tiles for
-bfloat16/float16 at head dims 64 and 128 with 16-byte aligned rows, f32
-FMA tiles otherwise.  Views with a unit last stride are read in place.
+``sm_scale``; head dims 64, 128, 192 (MLA's 128 + 64 query/key head)
+and 256; float32, bfloat16 and float16.  The kernel picks its path from
+the inputs: tensor-core tiles for bfloat16/float16 at head dims 64, 128
+and 192 with 16-byte aligned rows, f32 FMA tiles otherwise.  Views with a unit last stride are read in place.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ __all__ = ["flash_attention", "KERNELS", "LIBRARY", "SOURCE",
 KERNELS = {"flash_attention": "src/repro/kernels/flash_attention.py:34"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def _bind(lib) -> None:

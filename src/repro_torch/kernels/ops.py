@@ -1,10 +1,11 @@
 """Kernel entry points with backend dispatch.
 
-The port of ``repro.kernels.ops`` for the kernels ported so far:
-attention, the RG-LRU scan, the chunkwise mLSTM and the relocation
-codec.  Each op resolves to (a) the hand-written CUDA kernel
+The port of ``repro.kernels.ops``: attention, the RG-LRU scan, the
+chunkwise mLSTM, the MoE dispatch and combine and the relocation codec.
+Each op resolves to (a) the hand-written CUDA kernel
 (``kernels/flash_attention.py``, ``kernels/rg_lru.py``,
-``kernels/mlstm.py``, ``kernels/reloc_codec.py``) under the ``fused``
+``kernels/mlstm.py``, ``kernels/moe_dispatch.py``,
+``kernels/reloc_codec.py``) under the ``fused``
 backend, or (b) the plain PyTorch version (``kernels/ref.py``) under
 ``composite``.
 ``auto`` resolves per call to ``fused`` when the tensors lie on a CUDA
@@ -23,6 +24,7 @@ import os
 
 import torch
 
+from . import moe_dispatch as _moe
 from . import ref
 from . import reloc_codec as _rc
 from .flash_attention import flash_attention as _flash
@@ -30,8 +32,8 @@ from .mlstm import mlstm_chunkwise as _mlstm
 from .rg_lru import rg_lru as _rg_lru
 
 __all__ = ["set_backend", "get_backend", "resolve_backend", "attention",
-           "rg_lru_scan", "mlstm", "reloc_encode_pack", "reloc_pack_rows",
-           "reloc_decode_rows"]
+           "rg_lru_scan", "mlstm", "gather_rows", "moe_combine",
+           "reloc_encode_pack", "reloc_pack_rows", "reloc_decode_rows"]
 
 _VALID = ("auto", "fused", "composite")
 _BACKEND = os.environ.get("REPRO_TORCH_KERNEL_BACKEND", "auto")
@@ -98,6 +100,25 @@ def mlstm(q, k, v, i_gate, f_gate, *, impl: str | None = None,
     else:
         h, state = _mlstm(q, k, v, i_gate, f_gate)
     return (h, state) if return_state else h
+
+
+def gather_rows(x, idx, *, impl: str | None = None):
+    """``out[i] = x[idx[i]]`` over (N, D) rows, idx (M,) int32 in [0, N):
+    the kernel under ``fused`` (its plain version for CPU tensors),
+    ``gather_rows_ref`` under ``composite``."""
+    if resolve_backend(impl, x.device) == "composite":
+        return ref.gather_rows_ref(x, idx)
+    return _moe.gather_rows(x, idx)
+
+
+def moe_combine(y, slots, weights, *, impl: str | None = None):
+    """``out[t] = sum_k weights[t, k] * y[slots[t, k]]`` (slot < 0
+    skipped; f32 accumulation, ``y.dtype`` out): the kernel under
+    ``fused`` (its plain version for CPU tensors), ``moe_combine_ref``
+    under ``composite``."""
+    if resolve_backend(impl, y.device) == "composite":
+        return ref.moe_combine_ref(y, slots, weights)
+    return _moe.moe_combine(y, slots, weights)
 
 
 def reloc_encode_pack(mat, idx, widths, *, pairs, slots, width,

@@ -4,9 +4,11 @@ The port of ``repro.kernels.ref``: ``attention_ref`` and ``flash_ref``
 (what ``csrc/flash_attention.cu`` computes, up to the order of f32
 sums), the recurrences ``rg_lru_ref`` and ``mlstm_ref`` (what
 ``csrc/rg_lru.cu`` and ``csrc/mlstm.cu`` compute, step by step where the
-kernels fuse or chunk) and the relocation codec's ``reloc_*_ref`` (what
-``csrc/reloc_codec.cu`` computes, bit for bit), with ordinary tensor
-ops.  The CPU tests hold the port against
+kernels fuse or chunk), the MoE dispatch's ``gather_rows_ref`` and
+``moe_combine_ref`` (what ``csrc/moe_dispatch.cu`` computes: the gather
+bit for bit, the combine up to the order of its f32 sum) and the
+relocation codec's ``reloc_*_ref`` (what ``csrc/reloc_codec.cu``
+computes, bit for bit), with ordinary tensor ops.  The CPU tests hold the port against
 the JAX oracles through these, and ``chip_smoke.py`` holds each kernel
 against them on the card.  Nothing on the card's main path calls them:
 the kernel wrappers take them only for tensors that lie on the CPU.
@@ -22,6 +24,7 @@ import math
 import torch
 
 __all__ = ["attention_ref", "flash_ref", "rg_lru_ref", "mlstm_ref",
+           "gather_rows_ref", "moe_combine_ref",
            "reloc_encode_pack_ref", "reloc_pack_rows_ref",
            "reloc_decode_rows_ref"]
 
@@ -174,6 +177,28 @@ def mlstm_ref(q, k, v, i_gate, f_gate, c0=None, n0=None, m0=None):
         hs[:, t] = torch.einsum("bkv,bk->bv", C, qt) / denom[:, None]
         m = m_new
     return hs.to(q.dtype), (C, n, m)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch (moe_dispatch.cu)
+# ---------------------------------------------------------------------------
+def gather_rows_ref(x, idx):
+    """``out[i] = x[idx[i]]`` (the MoE dispatch); ``idx`` in [0, N),
+    checked here."""
+    idx = idx.long()
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= x.shape[0]):
+        raise IndexError(f"gather_rows: indices outside [0, {x.shape[0]})")
+    return x[idx]
+
+
+def moe_combine_ref(y, slots, weights):
+    """``out[t] = sum_k weights[t, k] * y[slots[t, k]]`` in f32, a slot
+    < 0 contributing 0; the result in ``y.dtype``."""
+    ok = slots >= 0
+    gathered = y[torch.where(ok, slots, torch.zeros_like(slots)).long()]
+    w = torch.where(ok, weights, torch.zeros_like(weights))
+    return torch.einsum("tk,tkd->td", w.float(),
+                        gathered.float()).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Model zoo of the port: the blocks the ported configs need (global and
-sliding-window GQA attention, the RG-LRU block, the mLSTM and sLSTM
-blocks, SwiGLU and GeGLU, RMS norm, RoPE)."""
-from . import (attention, config, device, layers, parallel, rglru, ssm,
+sliding-window GQA attention, DeepSeek's MLA, the MoE FFN with capacity
+dispatch, the RG-LRU block, the mLSTM and sLSTM blocks, SwiGLU and
+GeGLU, RMS norm, RoPE)."""
+from . import (attention, config, device, layers, moe, parallel, rglru, ssm,
                transformer, zoo)
 from .config import LayerSlot, ModelConfig
 from .parallel import Parallel
 
-__all__ = ["attention", "config", "device", "layers", "parallel", "rglru",
-           "ssm", "transformer", "zoo", "LayerSlot", "ModelConfig",
+__all__ = ["attention", "config", "device", "layers", "moe", "parallel",
+           "rglru", "ssm", "transformer", "zoo", "LayerSlot", "ModelConfig",
            "Parallel"]

@@ -1,6 +1,6 @@
 """Composable decoder LM: the port of ``repro.models.transformer`` for
-``attn_global`` / ``attn_local`` / ``rec`` (RG-LRU) / ``mlstm`` /
-``slstm`` mixers with dense SwiGLU FFNs or none.
+``attn_global`` / ``attn_local`` / ``mla`` / ``rec`` (RG-LRU) /
+``mlstm`` / ``slstm`` mixers with dense SwiGLU FFNs, MoE FFNs or none.
 
 The parameter and decode-state pytrees keep the reference's layout —
 dicts and tuples, ``prefix`` (unstacked) + ``scan`` (one stacked dict
@@ -12,9 +12,10 @@ keys in sorted order: ``jax.tree_util`` flattens dicts by sorted key,
 leaves out in flatten order.  ``jax.lax.scan`` over the stacked
 periods becomes a Python loop over ``params["scan"][j][i]`` views.
 
-MLA, MoE FFNs, encoder-decoder configs and multi-token prediction
-raise ``NotImplementedError`` (ROADMAP.md queue 1, slice 4);
-``train_loss`` / ``lm_loss`` wait for the training slice.
+Encoder-decoder configs, M-RoPE and multi-token prediction raise
+``NotImplementedError`` (ROADMAP.md queue 1); MoE runs without a mesh
+only (``moe_forward_dense``); ``train_loss`` / ``lm_loss`` wait for the
+training slice.
 
 Two departures from a line-by-line copy, neither of which changes a
 result:
@@ -44,6 +45,8 @@ from .config import LayerSlot, ModelConfig
 from .device import default_device
 from .layers import (dense_init, embed_init, rmsnorm, rmsnorm_init, swiglu,
                      swiglu_init)
+from .moe import (mla_attend_cache, mla_decode_project, mla_forward,
+                  mla_init, moe_forward_dense, moe_init)
 from .parallel import Parallel, constrain
 from .rglru import (rglru_block, rglru_block_init, rglru_block_step,
                     rglru_empty_state)
@@ -57,9 +60,9 @@ __all__ = ["init_params", "decode_step", "prefill", "prefill_forward",
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
 
-_NEXT = "ROADMAP.md queue 1, slice 4"
+_NEXT = "ROADMAP.md queue 1"
 _ATTN = ("attn_global", "attn_local")
-_MIXERS = _ATTN + ("rec", "mlstm", "slstm")
+_MIXERS = _ATTN + ("mla", "rec", "mlstm", "slstm")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -74,11 +77,13 @@ def _check_supported(cfg: ModelConfig) -> None:
         if slot.mixer not in _MIXERS:
             raise NotImplementedError(
                 f"mixer {slot.mixer!r} is not ported yet ({_NEXT})")
-        if slot.ffn not in ("dense", "none"):
+        if slot.ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"ffn {slot.ffn!r} is not ported yet ({_NEXT})")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encoder-decoder configs ({_NEXT})")
+    if cfg.mrope_sections:
+        raise NotImplementedError(f"M-RoPE positions ({_NEXT})")
     if cfg.mtp_depth:
         raise NotImplementedError(f"multi-token prediction ({_NEXT})")
 
@@ -100,7 +105,8 @@ def cast_params(params, cfg: ModelConfig):
 # Block init / forward
 # ---------------------------------------------------------------------------
 _MIXER_INIT = {"attn_global": attn_init, "attn_local": attn_init,
-               "rec": rglru_block_init, "mlstm": mlstm_block_init}
+               "mla": mla_init, "rec": rglru_block_init,
+               "mlstm": mlstm_block_init}
 
 
 def _block_init(gen, cfg: ModelConfig, slot: LayerSlot, dtype):
@@ -113,6 +119,11 @@ def _block_init(gen, cfg: ModelConfig, slot: LayerSlot, dtype):
     if slot.ffn == "dense":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif slot.ffn == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+        p["ffn"] = moe_init(gen, cfg, dtype)
+        if cfg.n_shared_experts:
+            p["shared_norm_alias"] = ()  # marker only; shared lives in ffn
     return p
 
 
@@ -121,16 +132,24 @@ def _zero_aux(device):
     return {"aux": z, "z": z}
 
 
-def _ffn(p, cfg: ModelConfig, slot: LayerSlot, x):
+def _ffn(p, cfg: ModelConfig, slot: LayerSlot, x, *, impl=None):
+    """x + the block's FFN; returns (x, aux metrics or None)."""
     if slot.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x
+    elif slot.ffn == "moe":
+        # without a mesh (``Parallel`` raises on one): the dense dispatch
+        y, aux = moe_forward_dense(p["ffn"], cfg,
+                                   rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                   impl=impl)
+        return x + y, aux
+    return x, None
 
 
 def _block_forward(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
                    positions, *, impl=None, causal=True):
     """Full-sequence block application. Returns (x, aux, cache_entry):
-    (k, v) for attention, the final recurrent state otherwise."""
+    (k, v) for attention, (c_kv, k_rope) for MLA, the final recurrent
+    state otherwise."""
     if slot.mixer == "slstm":
         x, cache = slstm_block(p["mixer"], cfg, x, return_state=True)
     else:
@@ -140,6 +159,8 @@ def _block_forward(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
             y, cache = attn_forward(p["mixer"], cfg, h, positions,
                                     causal=causal, window=window, impl=impl,
                                     par=par)
+        elif slot.mixer == "mla":
+            y, cache = mla_forward(p["mixer"], cfg, h, positions, impl=impl)
         elif slot.mixer == "rec":
             y, cache = rglru_block(p["mixer"], cfg, h, impl=impl,
                                    return_state=True)
@@ -147,7 +168,8 @@ def _block_forward(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
             y, cache = mlstm_block(p["mixer"], cfg, h, impl=impl,
                                    return_state=True)
         x = x + y
-    return _ffn(p, cfg, slot, x), _zero_aux(x.device), cache
+    x, aux = _ffn(p, cfg, slot, x, impl=impl)
+    return x, aux if aux is not None else _zero_aux(x.device), cache
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +190,28 @@ def _stack(trees):
     return pytree.tree_map(lambda *a: torch.stack(a), *trees)
 
 
+def _stacked_init(gen, cfg: ModelConfig, slot: LayerSlot, dtype,
+                  n_periods: int):
+    """``_stack`` of ``n_periods`` block inits, drawn period by period in
+    the same order, but written into the stacked leaves as they come: the
+    peak is the stack plus one period, not two stacks."""
+    leaves, spec = pytree.tree_flatten(_block_init(gen, cfg, slot, dtype))
+    out = [torch.empty((n_periods,) + tuple(a.shape), dtype=a.dtype,
+                       device=a.device) for a in leaves]
+    for i in range(n_periods):
+        if i:
+            leaves = pytree.tree_leaves(_block_init(gen, cfg, slot, dtype))
+        for o, a in zip(out, leaves):
+            o[i].copy_(a)
+        del leaves
+    return pytree.tree_unflatten(out, spec)
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """Random parameters (in ``cfg.param_dtype``) on ``gen.device``."""
+    """Random parameters (in ``cfg.param_dtype``) on ``gen.device``.
+    Every leaf is drawn in f32 and then cast, so ``param_dtype =
+    cfg.dtype`` gives the values ``cast_params`` makes of the f32 draw,
+    without holding the f32 masters."""
     _check_supported(cfg)
     dtype = _torch_dtype(cfg.param_dtype)
     prefix_slots, n_periods, suffix_slots = _layer_plan(cfg)
@@ -181,10 +223,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_padded, dtype)
     p["prefix"] = tuple(_block_init(gen, cfg, s, dtype)
                         for s in prefix_slots)
-    p["scan"] = tuple(
-        _stack([_block_init(gen, cfg, slot, dtype)
-                for _ in range(n_periods)])
-        for slot in cfg.pattern) if n_periods else ()
+    p["scan"] = tuple(_stacked_init(gen, cfg, slot, dtype, n_periods)
+                      for slot in cfg.pattern) if n_periods else ()
     p["suffix"] = tuple(_block_init(gen, cfg, s, dtype)
                         for s in suffix_slots)
     return p
@@ -287,10 +327,19 @@ def _slot_cache_shape(cfg: ModelConfig, slot: LayerSlot, batch: int,
                       s_cache: int, device, lead: tuple = ()):
     if slot.mixer in _EMPTY_STATE:
         return _EMPTY_STATE[slot.mixer](cfg, batch, device=device, lead=lead)
+    dt = _torch_dtype(cfg.dtype)
+    if slot.mixer == "mla":
+        return {
+            "ckv": torch.zeros(lead + (batch, s_cache, cfg.kv_lora_rank),
+                               dtype=dt, device=device),
+            "krope": torch.zeros(lead + (batch, s_cache, cfg.qk_rope_dim),
+                                 dtype=dt, device=device),
+            "pos": torch.full(lead + (batch, s_cache), -1,
+                              dtype=torch.int32, device=device),
+        }
     hd = cfg.resolved_head_dim
     size = s_cache if slot.mixer == "attn_global" else min(
         s_cache, cfg.window or s_cache)
-    dt = _torch_dtype(cfg.dtype)
     return {
         "k": torch.zeros(lead + (batch, size, cfg.n_kv_heads, hd),
                          dtype=dt, device=device),
@@ -329,7 +378,7 @@ def _write(cache, new) -> None:
 
 
 def _block_decode(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
-                  positions, cache):
+                  positions, cache, *, impl=None):
     """One-token decode through a block.  ``cache`` is owned by the
     caller's fresh clone of the state: an attention block writes the new
     row into it in place, then attends (write-then-attend); a recurrent
@@ -343,19 +392,32 @@ def _block_decode(p, cfg: ModelConfig, slot: LayerSlot, par: Parallel, x,
         step = rglru_block_step if slot.mixer == "rec" else mlstm_block_step
         y, new = step(p["mixer"], cfg, h, cache)
         _write(cache, new)
-        return _ffn(p, cfg, slot, x + y), cache
+        return _ffn(p, cfg, slot, x + y, impl=impl)[0], cache
+    bidx = torch.arange(x.shape[0], device=x.device)
+    if slot.mixer == "mla":
+        q_pair, ckv_new, kr_new = mla_decode_project(p["mixer"], cfg, h,
+                                                     positions)
+        wslot = (positions[:, 0] % cache["ckv"].shape[1]).long()
+        cache["ckv"].index_put_((bidx, wslot),
+                                ckv_new.to(cache["ckv"].dtype))
+        cache["krope"].index_put_((bidx, wslot),
+                                  kr_new.to(cache["krope"].dtype))
+        cache["pos"].index_put_((bidx, wslot),
+                                positions[:, 0].to(cache["pos"].dtype))
+        y = mla_attend_cache(p["mixer"], cfg, q_pair, cache["ckv"],
+                             cache["krope"], cache["pos"], positions)
+        return _ffn(p, cfg, slot, x + y, impl=impl)[0], cache
     window = cfg.window if slot.mixer == "attn_local" else None
     q, k_new, v_new = attn_decode_project(p["mixer"], cfg, h, positions)
     size = cache["k"].shape[1]
     wslot = (positions[:, 0] % size).long()
-    bidx = torch.arange(x.shape[0], device=x.device)
     cache["k"].index_put_((bidx, wslot), k_new.to(cache["k"].dtype))
     cache["v"].index_put_((bidx, wslot), v_new.to(cache["v"].dtype))
     cache["pos"].index_put_((bidx, wslot),
                             positions[:, 0].to(cache["pos"].dtype))
     y = attn_attend_cache(p["mixer"], cfg, q, cache["k"], cache["v"],
                           cache["pos"], positions, window=window)
-    return _ffn(p, cfg, slot, x + y), cache
+    return _ffn(p, cfg, slot, x + y, impl=impl)[0], cache
 
 
 def decode_step(params, cfg: ModelConfig, par: Parallel, state, token_ids,
@@ -363,7 +425,8 @@ def decode_step(params, cfg: ModelConfig, par: Parallel, state, token_ids,
     """serve_step: one new token per sequence against the cache.
 
     token_ids: (B, 1) int32.  Returns (new_state, logits (B, V) f32);
-    ``state`` itself is left as it was."""
+    ``state`` itself is left as it was.  ``impl`` picks the MoE
+    dispatch's backend (``fused`` or ``composite``)."""
     params = cast_params(params, cfg)
     prefix_slots, n_periods, suffix_slots = _layer_plan(cfg)
     B = token_ids.shape[0]
@@ -374,18 +437,20 @@ def decode_step(params, cfg: ModelConfig, par: Parallel, state, token_ids,
 
     for p_blk, slot, cache in zip(params["prefix"], prefix_slots,
                                   new["prefix"]):
-        h, _ = _block_decode(p_blk, cfg, slot, par, h, positions, cache)
+        h, _ = _block_decode(p_blk, cfg, slot, par, h, positions, cache,
+                             impl=impl)
 
     for i in range(n_periods):
         stacked_p = _period(params["scan"], i)
         stacked_c = _period(new["scan"], i)       # views into the clone
         for j, slot in enumerate(cfg.pattern):
             h, _ = _block_decode(stacked_p[j], cfg, slot, par, h,
-                                 positions, stacked_c[j])
+                                 positions, stacked_c[j], impl=impl)
 
     for p_blk, slot, cache in zip(params["suffix"], suffix_slots,
                                   new["suffix"]):
-        h, _ = _block_decode(p_blk, cfg, slot, par, h, positions, cache)
+        h, _ = _block_decode(p_blk, cfg, slot, par, h, positions, cache,
+                             impl=impl)
 
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     # keys in the reference's (sorted) flatten order: the tree codec
@@ -428,21 +493,45 @@ def _fill_attn_cache(cfg: ModelConfig, slot: LayerSlot, kv, positions,
     return {"k": ck, "pos": cp, "v": cv}
 
 
+def _fill_mla_cache(cfg: ModelConfig, kv, positions, s_cache: int):
+    """Prefill (c_kv (B, S, r), k_rope (B, S, dr)) → the latent decode
+    cache ({ckv, krope, pos} sized s_cache; a prompt longer than the
+    cache keeps its last s_cache rows, as the reference does)."""
+    ckv, krope = kv
+    pos = (positions if positions.dim() == 2 else positions[0]).to(
+        torch.int32)
+    S = ckv.shape[1]
+    if S > s_cache:
+        ckv, krope, pos = (ckv[:, -s_cache:], krope[:, -s_cache:],
+                           pos[:, -s_cache:])
+        S = s_cache
+    pad = s_cache - S
+    return {"ckv": torch.nn.functional.pad(ckv, (0, 0, 0, pad)),
+            "krope": torch.nn.functional.pad(krope, (0, 0, 0, pad)),
+            "pos": torch.nn.functional.pad(pos, (0, pad), value=-1)}
+
+
 def _cache_to_state(cfg: ModelConfig, slot: LayerSlot, c, positions,
                     s_cache: int, stacked: bool):
-    if slot.mixer not in _ATTN:
+    if slot.mixer not in _ATTN + ("mla",):
         return c  # recurrent states pass through (already final)
+
+    def fill(kv):
+        if slot.mixer == "mla":
+            return _fill_mla_cache(cfg, kv, positions, s_cache)
+        return _fill_attn_cache(cfg, slot, kv, positions, s_cache)
+
     if not stacked:
-        return _fill_attn_cache(cfg, slot, c, positions, s_cache)
-    k, v = c                                 # (n_periods, B, S, Hkv, hd)
-    return _stack([_fill_attn_cache(cfg, slot, (k[i], v[i]), positions,
-                                    s_cache) for i in range(k.shape[0])])
+        return fill(c)
+    a, b = c                             # (n_periods, B, S, ...) each
+    return _stack([fill((a[i], b[i])) for i in range(a.shape[0])])
 
 
 def prefill_forward(params, cfg: ModelConfig, par: Parallel, batch,
                     s_cache: int, *, impl=None):
-    """Parallel prefill: full forward through the flash, RG-LRU and mLSTM
-    kernels, returns (decode_state, last_logits (B, V) f32)."""
+    """Parallel prefill: full forward through the flash, RG-LRU, mLSTM
+    and MoE dispatch kernels, returns (decode_state, last_logits (B, V)
+    f32)."""
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     positions = _positions_for(cfg, batch)

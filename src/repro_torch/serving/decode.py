@@ -2,7 +2,7 @@
 
 The port of ``repro.serving.decode``.  A :class:`DecodeEngine` runs
 ``models.transformer.decode_step`` (eagerly — there is no ``jit``; the
-compute parameters are cast to the compute dtype once, at
+compute parameters are drawn in the compute dtype once, at
 construction) over each replica's resident sequences in power-of-two
 micro-batch buckets and reports *measured* wall-clock step times: the
 numbers that feed :class:`~repro_torch.serving.workload.TrafficWorkload`'s
@@ -25,6 +25,7 @@ duration is the slowest live replica's measured time.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 
@@ -113,9 +114,12 @@ class DecodeEngine:
         if self.cfg.is_encoder_decoder:
             raise ValueError("DecodeEngine serves decoder-only configs")
         self.par = Parallel(mesh=None)
-        # compute params, cast once (the f32 masters are not kept)
-        self.params = T.cast_params(
-            zoo.init_params(self.cfg, seed, device=self.device), self.cfg)
+        # compute params, drawn in the compute dtype: the values
+        # ``cast_params`` makes of the f32 draw, without ever holding the
+        # f32 masters (15.7 B parameters are 63 GB in f32)
+        self.params = T.cast_params(zoo.init_params(
+            dataclasses.replace(self.cfg, param_dtype=self.cfg.dtype), seed,
+            device=self.device), self.cfg)
         self.s_cache = s_cache
         self.max_batch = int(max_batch)
         self.rng = np.random.default_rng(seed)

@@ -3,7 +3,8 @@
 Needs an NVIDIA card and ``nvcc`` (the kernels have no CPU mode; their
 plain versions are held against the JAX package in
 ``test_torch_codec.py``, ``test_torch_attention.py``,
-``test_torch_recurrent.py`` and ``test_torch_xlstm.py``).  Imports
+``test_torch_recurrent.py``, ``test_torch_xlstm.py`` and
+``test_torch_moe.py``).  Imports
 neither JAX nor ``ml_dtypes``, so it runs on a machine that has only
 PyTorch:
 
@@ -15,7 +16,10 @@ move bytes; the flash kernel within ``1e-4`` in float32 and ``2e-2``
 sum in f32, in another order, and round the output once; the model's
 fused prefill within ``3e-2`` of the composite one in bfloat16, the
 tolerance of ``tests/test_arch_smoke.py``; the recurrence kernels and
-the recurrent models within the tolerances stated at their tests.
+the recurrent models within the tolerances stated at their tests; the
+MoE gather exactly, the MoE combine within ``1e-6`` of each row's
+largest term (both sum in f32, in another order), plus one ulp of the
+output type in bfloat16 and float16 (each rounds its sum once).
 """
 import dataclasses
 
@@ -117,6 +121,9 @@ FLASH_CASES = [
     (1, 4, 2, 65, 65, 128, False, None, 50.0),
     (2, 4, 2, 1, 90, 128, True, None, 0.0),           # Sq = 1
     (1, 2, 1, 130, 40, 64, True, 16, 0.0),            # masked rows
+    (2, 4, 4, 150, 150, 192, True, None, 0.0),        # MLA's head dim
+    (1, 4, 4, 77, 77, 192, False, None, 0.0),
+    (2, 4, 4, 1, 90, 192, True, None, 0.0),
 ]
 
 
@@ -350,5 +357,123 @@ def test_recurrent_model_fused_matches_composite_on_card(arch):
     for _ in range(4):
         st_f, lf = T.decode_step(params, cfg, par, st_f, tok)
         st_c, lc = T.decode_step(params, cfg, par, st_c, tok)
+        torch.testing.assert_close(lf, lc, atol=1e-3, rtol=1e-3)
+        tok = lf.argmax(-1)[:, None].to(torch.int32)
+
+
+# -- the MoE dispatch: gather_rows and moe_combine ----------------------------
+# (N, M, D): aligned and unaligned rows, repeated indices, M = 0, N = 1
+GATHER_CASES = [(300, 500, 2048), (50, 64, 24), (37, 100, 13), (1, 9, 24),
+                (20, 0, 24), (4097, 2048, 2048)]
+# (T, K, S, D): K = 1 and 8, unaligned D
+COMBINE_CASES = [(200, 6, 640, 2048), (33, 1, 40, 24), (50, 8, 400, 24),
+                 (17, 6, 60, 13), (4, 6, 256, 2048)]
+
+
+def _ulp(x, dtype):
+    """One unit in the last place of ``x`` in ``dtype`` (as f32)."""
+    bits = {"bfloat16": 8, "float16": 11}[dtype]
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - (bits - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_moe_kernels_match_plain_versions_on_card(dtype):
+    _need_card()
+    from repro_torch.kernels import moe_dispatch as md
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    for N, M, D in GATHER_CASES:
+        x = torch.randn((N, D), generator=g, device="cuda").to(dt)
+        idx = torch.randint(0, N, (M,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        before = rc.launch_counts["gather_rows"]
+        got = md.gather_rows(x, idx)
+        torch.cuda.synchronize()
+        assert rc.launch_counts["gather_rows"] == before + (M > 0)
+        assert torch.equal(got, ref.gather_rows_ref(x, idx))
+    for Tn, K, S, D in COMBINE_CASES:
+        y = torch.randn((S, D), generator=g, device="cuda").to(dt)
+        w = torch.rand((Tn, K), generator=g, device="cuda")
+        for lo in (-1, -S):                      # some dropped; all dropped
+            slots = torch.randint(lo, S, (Tn, K), generator=g,
+                                  device="cuda", dtype=torch.int32)
+            if lo == -S:
+                slots = slots.clamp(max=-1)
+            got = md.moe_combine(y, slots, w)
+            want = ref.moe_combine_ref(y, slots, w)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and torch.isfinite(got.float()).all()
+            err = (got.float() - want.float()).abs()
+            # the f32 sums differ by their order: 1e-6 of the row's
+            # largest term; a 16-bit output adds one ulp of its rounding
+            ok = slots >= 0
+            terms = (w[:, :, None] * y[slots.clamp(min=0).long()].float()
+                     * ok[:, :, None]).abs().amax(dim=(1, 2))
+            tol = 1e-6 * terms[:, None]
+            if dtype != "float32":
+                tol = tol + _ulp(torch.maximum(got.float().abs(),
+                                               want.float().abs()), dtype)
+            assert (err <= tol).all()
+
+
+@pytest.mark.cuda
+def test_moe_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    from repro_torch.kernels import moe_dispatch as md
+
+    x = torch.zeros((4, 8), device="cuda")
+    with pytest.raises(ValueError):                  # int64 indices
+        md.gather_rows(x, torch.zeros(3, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError):                  # 1-byte elements
+        md.gather_rows(x.to(torch.uint8),
+                       torch.zeros(3, dtype=torch.int32, device="cuda"))
+    slots = torch.zeros((2, 17), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):                  # K > 16
+        md.moe_combine(x, slots, slots.float())
+    with pytest.raises(ValueError):                  # float64 y
+        md.moe_combine(x.double(), slots[:, :4], slots[:, :4].float())
+
+
+@pytest.mark.cuda
+def test_deepseek_fused_matches_composite_on_card():
+    """Reduced deepseek-v2-lite (a dense first layer and one MLA + MoE
+    layer) with qk 128 + 64, so MLA's flash launch runs at head dim 192,
+    float32 compute: the fused prefill (flash, gather_rows, moe_combine)
+    and the composite one agree within 1e-3, and so do 4 decode steps
+    from each state on their own backends."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.models.parallel import Parallel
+
+    cfg = get_config("deepseek_v2_lite_16b").reduced(
+        qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, dtype="float32")
+    par = Parallel()
+    params = zoo.init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                           device="cuda", dtype=torch.int32)
+    before = dict(rc.launch_counts)
+    st_f, lg_f = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="fused")
+    torch.cuda.synchronize()
+    for name, n in (("flash_attention", cfg.n_layers), ("gather_rows", 1),
+                    ("moe_combine", 1)):
+        assert rc.launch_counts[name] == before[name] + n, name
+    st_c, lg_c = T.prefill_forward(params, cfg, par, {"tokens": tokens},
+                                   128, impl="composite")
+    torch.testing.assert_close(lg_f, lg_c, atol=1e-3, rtol=1e-3)
+    for a, b in zip(pytree.tree_leaves(st_f), pytree.tree_leaves(st_c)):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-3,
+                                   rtol=1e-3)
+    tok = lg_f.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(4):
+        st_f, lf = T.decode_step(params, cfg, par, st_f, tok, impl="fused")
+        st_c, lc = T.decode_step(params, cfg, par, st_c, tok,
+                                 impl="composite")
         torch.testing.assert_close(lf, lc, atol=1e-3, rtol=1e-3)
         tok = lf.argmax(-1)[:, None].to(torch.int32)

@@ -56,7 +56,9 @@ def test_package_has_the_slice_modules():
                 "kernels/csrc/rg_lru.cu", "kernels/mlstm.py",
                 "kernels/csrc/mlstm.cu", "models/device.py",
                 "models/rglru.py", "models/ssm.py",
-                "configs/recurrentgemma_2b.py", "configs/xlstm_350m.py"):
+                "configs/recurrentgemma_2b.py", "configs/xlstm_350m.py",
+                "kernels/moe_dispatch.py", "kernels/csrc/moe_dispatch.cu",
+                "models/moe.py", "configs/deepseek_v2_lite_16b.py"):
         assert (PORT / mod).is_file(), mod
 
 
@@ -98,9 +100,9 @@ def test_kernel_build_needs_no_card_to_import():
     # importing the kernel modules builds nothing; the build happens at
     # the first launch on a CUDA tensor
     from repro_torch.kernels import (cuda_build, flash_attention, mlstm,
-                                     reloc_codec, rg_lru)
+                                     moe_dispatch, reloc_codec, rg_lru)
 
-    mods = (reloc_codec, flash_attention, rg_lru, mlstm)
+    mods = (reloc_codec, flash_attention, rg_lru, mlstm, moe_dispatch)
     for mod in mods:
         assert mod.LIBRARY._lib is None or torch.cuda.is_available()
     # one registry counts every kernel of the port
@@ -111,6 +113,8 @@ def test_kernel_build_needs_no_card_to_import():
         "src/repro_torch/kernels/csrc/flash_attention.cu"
     assert rg_lru.SOURCE == "src/repro_torch/kernels/csrc/rg_lru.cu"
     assert mlstm.SOURCE == "src/repro_torch/kernels/csrc/mlstm.cu"
+    assert moe_dispatch.SOURCE == \
+        "src/repro_torch/kernels/csrc/moe_dispatch.cu"
 
 
 def test_serving_entry_points_default_to_the_card():

@@ -90,7 +90,8 @@ def test_configs_are_the_reference_configs():
     from repro_torch.configs import PORTED
 
     assert ARCH_IDS == J_ARCH_IDS
-    assert PORTED == ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m")
+    assert PORTED == ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m",
+                      "deepseek_v2_lite_16b")
     assert _same(get_config("qwen2-1.5b"), j_get_config("qwen2_1_5b"))
     for name in PORTED:
         assert _same(get_config(name), j_get_config(name))
@@ -267,20 +268,17 @@ def test_unported_pieces_raise():
         Parallel(mesh=object())
     with pytest.raises(NotImplementedError):
         TA.seq_parallel_decode_attention()
-    from repro_torch.models.config import LayerSlot
-
     base = serving_config()
+    # MLA and MoE are ported (tests/test_torch_mla.py); these are not
     unported = {
-        "mla": dataclasses.replace(
-            base, pattern=(LayerSlot("mla", "dense"),)),
-        "moe": dataclasses.replace(
-            base, pattern=(LayerSlot("attn_global", "moe"),)),
         "enc-dec": dataclasses.replace(base, is_encoder_decoder=True,
                                        encoder_layers=2),
+        "mrope": dataclasses.replace(base, mrope_sections=(2, 3, 3)),
+        "mtp": dataclasses.replace(base, mtp_depth=1),
     }
     assert unported["enc-dec"].is_encoder_decoder
     for cfg in unported.values():
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.init_decode_state(cfg, 1, 8, device="cpu")
