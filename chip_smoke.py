@@ -5,7 +5,9 @@ Drives the port's main paths on the card at the sizes below and holds
 each hand-written kernel against its plain PyTorch version:
 
 * phase 0: build the kernels from ``src/repro_torch/kernels/csrc`` (one
-  ``nvcc`` per source, all started together);
+  ``nvcc`` per source, all started together); count the ``HGMMA``
+  (``wgmma``) instructions in the flash library's SASS and read ptxas'
+  registers and spills of its TMA kernel (none may spill);
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
@@ -23,14 +25,18 @@ each hand-written kernel against its plain PyTorch version:
 * phase 4: the flash-attention kernel against ``flash_ref`` at qwen2's
   prefill shape (q 4 x 12 x 4096 x 128, k and v 4 x 2 x 4096 x 128,
   bfloat16, causal; timed beside its bound, ``flash_ref`` and
-  ``scaled_dot_product_attention``) and over a sweep of head dims 64 /
-  128 / 192 / 256, GQA groups 1 / 6 / 8, causal and not, a window, a
-  softcap, ragged lengths, ``Sq = 1``, fully masked rows,
-  recurrentgemma-2b's local attention (head dim 256, group 10, causal
-  window 2048) and deepseek-v2-lite's MLA (head dim 192, 16 heads), in
-  float32 (within 1e-4), bfloat16 and float16 (within 2e-2 absolute and
-  relative); also timed at deepseek's prefill shape (4 x 16 x 4096 x
-  192, bfloat16, causal);
+  ``scaled_dot_product_attention``, with its TFLOP/s) and over a sweep
+  of head dims 64 / 128 / 192 / 256, GQA groups 1 / 6 / 8 / 10, causal
+  and not, windows shorter than a key tile and longer than several, a
+  softcap, ragged lengths, ``Sq = 1``, fully masked rows, the models'
+  transposed (B, S, H, D) views, rows whose stride is no 16-byte
+  multiple, recurrentgemma-2b's local attention (head dim 256, group
+  10, causal window 2048) and deepseek-v2-lite's MLA (head dim 192, 16
+  heads), in float32 (within 1e-4), bfloat16 and float16 (within 2e-2
+  absolute and relative); also timed at deepseek's prefill shape (4 x
+  16 x 4096 x 192) and at recurrentgemma-2b's local attention (q 4 x
+  10 x 4096 x 256, k and v 4 x 1 x 4096 x 256, causal window 2048,
+  SDPA with a boolean band mask), bfloat16;
 * phase 5: qwen2-1.5B (28 layers, full width, random weights from a
   seed) ``prefill_forward`` on 4 prompts of 4096 tokens through the
   flash kernel (``fused``) and through ``flash_ref`` (``composite``),
@@ -665,8 +671,13 @@ def phase_glb_checks(shift, col_dev, res_dev, report):
 # ---------------------------------------------------------------------------
 QWEN_PREFILL = (4, 12, 2, 4096, 4096, 128)        # B, Hq, Hkv, Sq, Skv, D
 DEEPSEEK_PREFILL = (4, 16, 16, 4096, 4096, 192)   # MLA: qk 128 + 64
+RG_LOCAL = (4, 10, 1, 4096, 4096, 256)            # recurrentgemma-2b's
+RG_WINDOW = 2048                                  # local attention
 
-# (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap)
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap[, layout]); layout
+# "bshd" passes q, k, v as the models do, (B, S, H, D) transposed to
+# (B, H, S, D) views; "pad" gives rows a stride of D + 4 elements (not a
+# 16-byte multiple in bf16/f16: the FMA path)
 FLASH_SWEEP = [
     (2, 8, 8, 1000, 1000, 64, True, None, 0.0),       # group 1
     (1, 12, 2, 1000, 1000, 128, False, None, 0.0),    # group 6
@@ -680,16 +691,31 @@ FLASH_SWEEP = [
     (1, 16, 16, 777, 777, 192, False, None, 0.0),     # ragged, not causal
     (2, 16, 16, 1, 1000, 192, True, None, 0.0),       # Sq = 1
     (1, 16, 16, 1000, 300, 192, True, 64, 0.0),       # rows >= 363 masked
+    (1, 6, 1, 129, 200, 128, True, None, 0.0),        # ragged tiles
+    (1, 8, 1, 1000, 129, 64, True, 16, 0.0),          # window < a tile
+    (1, 10, 1, 200, 1000, 256, False, 700, 0.0),      # window > 5 tiles
+    (2, 12, 2, 1000, 1000, 128, True, None, 0.0, "bshd"),
+    (1, 16, 16, 1000, 1000, 192, True, None, 0.0, "bshd"),
+    (1, 10, 1, 1000, 1000, 256, True, 300, 0.0, "bshd"),
+    (1, 8, 8, 300, 300, 128, True, None, 0.0, "pad"),
 ]
 FLASH_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2),
              "float16": (2e-2, 2e-2)}
 
 
-def flash_inputs(gen, shape, dtype):
+def flash_inputs(gen, shape, dtype, layout="bhsd"):
     import torch
     B, Hq, Hkv, Sq, Skv, D = shape
-    mk = lambda h, n: torch.randn((B, h, n, D), generator=gen,
-                                  device=DEV).to(torch_dtype(dtype))
+    dt = torch_dtype(dtype)
+
+    def mk(h, n):
+        if layout == "bshd":
+            return torch.randn((B, n, h, D), generator=gen,
+                               device=DEV).to(dt).transpose(1, 2)
+        if layout == "pad":
+            return torch.randn((B, h, n, D + 4), generator=gen,
+                               device=DEV).to(dt)[..., :D]
+        return torch.randn((B, h, n, D), generator=gen, device=DEV).to(dt)
     return mk(Hq, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
 
 
@@ -714,8 +740,8 @@ def phase_flash(report):
     sweep = []
     for dtype in ("float32", "bfloat16", "float16"):
         for case in FLASH_SWEEP:
-            causal, window, softcap = case[6:]
-            q, k, v = flash_inputs(gen, case[:6], dtype)
+            causal, window, softcap = case[6:9]
+            q, k, v = flash_inputs(gen, case[:6], dtype, *case[9:])
             got = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
             want = ref.flash_ref(q, k, v, causal=causal, window=window,
@@ -736,12 +762,16 @@ def phase_flash(report):
     report["flash"] = out
     report["flash_d192"] = flash_at(gen, DEEPSEEK_PREFILL,
                                     "deepseek prefill shape")
+    report["flash_d256"] = flash_at(gen, RG_LOCAL,
+                                    "recurrentgemma local attention shape",
+                                    window=RG_WINDOW)
     return out
 
 
-def flash_at(gen, shape, what):
+def flash_at(gen, shape, what, window=None):
     """The kernel against ``flash_ref`` at one prefill shape (bfloat16,
-    causal), timed beside its bound, ``flash_ref`` and SDPA."""
+    causal, an optional window), timed beside its bound, ``flash_ref``
+    and SDPA (with a boolean band mask where there is a window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -749,31 +779,46 @@ def flash_at(gen, shape, what):
 
     B, Hq, Hkv, Sq, Skv, D = shape
     q, k, v = flash_inputs(gen, shape, "bfloat16")
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = ref.flash_ref(q, k, v, causal=True)
+    run = lambda: fa.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                     window=window)
+    got = run()
+    want = ref.flash_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = flash_close(got, want, "bfloat16", what)
     del got, want
-    flops = fa.attention_flops(B, Hq, Sq, Skv, D, causal=True, window=None)
+    flops = fa.attention_flops(B, Hq, Sq, Skv, D, causal=True, window=window)
     nbytes = 2 * (q.nelement() + k.nelement() + v.nelement()
                   + q.nelement())
     bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, scale=1.0 / D ** 0.5, enable_gqa=True)
+        call = ("F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+                "enable_gqa=True)")
+    else:
+        i = torch.arange(Sq, device=DEV)[:, None]
+        j = torch.arange(Skv, device=DEV)[None, :]
+        band = (j <= i) & (j > i - window)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=band, scale=1.0 / D ** 0.5, enable_gqa=True)
+        call = ("F.scaled_dot_product_attention(q, k, v, attn_mask=band, "
+                f"enable_gqa=True), band = causal window {window}")
+    ms = cuda_ms(run)
     out = {
         "shape": f"q ({B}, {Hq}, {Sq}, {D}), k/v ({B}, {Hkv}, {Skv}, {D}) "
-                 "bfloat16, causal",
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        "plain_ms": cuda_ms(lambda: ref.flash_ref(q, k, v, causal=True)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=1.0 / D ** 0.5,
-            enable_gqa=True)),
-        "library_call": "F.scaled_dot_product_attention(q, k, v, "
-                        "is_causal=True, enable_gqa=True)",
+                 "bfloat16, causal"
+                 + (f", window {window}" if window is not None else ""),
+        "ms": ms, "tflops": flops / ms / 1e9,
+        "plain_ms": cuda_ms(lambda: ref.flash_ref(q, k, v, causal=True,
+                                                  window=window)),
+        "library_ms": cuda_ms(sdpa), "library_call": call,
         "bound_ms": bound * 1e3, "flops": flops, "bytes": nbytes,
         "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
         >= nbytes / HBM_BYTES_PER_S else "bytes",
         "max_abs_err": err}
-    log(f"[flash {what}] {out['ms']:.3f} ms (bound {out['bound_ms']:.3f}, "
-        f"plain {out['plain_ms']:.3f}, sdpa {out['library_ms']:.3f})")
+    log(f"[flash {what}] {out['ms']:.3f} ms, {out['tflops']:.1f} TFLOP/s "
+        f"(bound {out['bound_ms']:.3f}, plain {out['plain_ms']:.3f}, "
+        f"sdpa {out['library_ms']:.3f})")
     del q, k, v
     torch.cuda.empty_cache()
     return out
@@ -1863,6 +1908,42 @@ def profile_main_paths(shift, path):
     return out
 
 
+def flash_build(build_log, so_path):
+    """What phase 0 built for flash: ``HGMMA`` (wgmma) instructions in
+    the library's SASS, and ptxas' registers and spills for each
+    instantiation of the TMA kernel (from this run's build log)."""
+    import re
+    from repro_torch.kernels import cuda_build
+
+    sass = subprocess.run(
+        [str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(so_path)], capture_output=True, text=True, timeout=300)
+    hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    kernels, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for \S*flash_tma_kernelI"
+                      r"(\w+?)Li(\d+)E", line)
+        if m:
+            cur = f"{'f16' if 'half' in m.group(1) else 'bf16'} " \
+                  f"D={m.group(2)}"
+            kernels[cur] = {}
+        elif cur and "spill stores" in line:
+            kernels[cur]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif cur and "Used" in line:
+            kernels[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    out = {"hgmma": hgmma, "tma_kernels": kernels,
+           "serialized": [line.strip() for line in build_log.splitlines()
+                          if "C7512" in line]}
+    log(f"[build] flash: {hgmma} HGMMA in the SASS; TMA kernels {kernels}")
+    require(hgmma > 0, "flash: no wgmma (HGMMA) in libflash_attention.so")
+    require(not any(k.get("spill_bytes") for k in kernels.values()),
+            f"flash: the TMA kernel spills: {kernels}")
+    return out
+
+
 def smi_line() -> str:
     try:
         out = subprocess.run(
@@ -1917,6 +1998,8 @@ def main(argv=None) -> int:
     for lib, path in zip(libraries, paths):
         log(lib.build_log)
         log(f"[build] {path}")
+    report["flash_build"] = flash_build(fa.LIBRARY.build_log,
+                                        paths[libraries.index(fa.LIBRARY)])
 
     with Phase("kernels", report):
         times = phase_kernels(args.shift, report)
@@ -2012,7 +2095,8 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "qwen2", "serving", "recurrentgemma", "xlstm",
         "recurrentgemma_serving", "deepseek", "deepseek_serving",
-        "flash_d192")} | {"launches": launches}))
+        "flash_d192", "flash_d256", "flash_build")}
+        | {"launches": launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

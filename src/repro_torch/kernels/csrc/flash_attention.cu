@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): tiled online-softmax attention.
 //
-// Replaces repro/kernels/flash_attention.py:flash_attention (the Pallas
-// _attn_kernel).  It computes what that kernel computes:
+// Replaces src/repro/kernels/flash_attention.py:34 (the Pallas
+// _attn_kernel behind flash_attention).  It computes what that kernel
+// computes:
 //
 //   out[b, h, i] = sum_j p_ij v[b, h / group, j] / sum_j p_ij,
 //   s_ij = sm_scale * q_i . k_j, optionally softcap * tanh(s_ij / softcap),
@@ -16,66 +17,96 @@
 // one CTA owns one (b*Hq + h, q-block) and loops over the k-blocks the
 // visit predicate keeps (causal: none wholly above the diagonal; window:
 // none wholly before the window), so (m, l, acc) live in registers.
-// Masked lanes take DEFAULT_MASK_VALUE and then an exact 0 after the
+// Masked lanes take kMaskValue and then an exact 0 after the
 // exponential (as at flash_attention.py:79-87), so a row whose first
 // visited tile is fully masked never produces NaN; the final division
-// happens only where l > 0.  Ragged Sq / Skv are bounds masks: nothing
-// is padded or copied.  Strides are taken for every axis but the last.
+// happens only where l > 0.
 //
-// The CUDA-core path: 256 threads as a 16 x 16 grid.  Thread (ty, tx)
-// owns query rows 4*ty .. 4*ty+3 of the 64-row block and, for the
-// scores, key columns tx + 16*c (c < 4) of the 64-key block; for the
-// output, head-dim columns tx + 16*c (c < D/16).  Q stays in shared
-// memory as f32 for the whole loop; K and then V of the current key
-// block share one f32 tile (rows padded by one word against bank
-// conflicts); P goes through a 64 x 65 f32 tile.  Both products are f32
-// FMA loops.
+// Which path serves which inputs (decided from dtype, head dim and
+// alignment before the launch; a refused launch or a tensor map that
+// fails to encode returns non-zero and the wrapper raises):
 //
-// Two paths, chosen per call from what the inputs allow:
+// * bf16 / f16, head dim 64, 128, 192 or 256, every base and stride a
+//   16-byte multiple (the prefills' case, transposed (B, S, H, D) views
+//   included): TMA + wgmma, warp-specialized (flash_tma_kernel).
+// * everything else (float32, unaligned views): f32 FMA tiles
+//   (flash_fwd_kernel).
 //
-// * bf16 / f16 with D = 64, 128 or 192 and 16-byte aligned rows (the
-//   prefills' case; 192 is MLA's qk_nope + qk_rope head, with V padded
-//   to it): the products run on the tensor cores, as
-//   mma.sync.m16n8k16 with f32 accumulation.  4 warps, each owning 16
-//   query rows; S = Q K^T stays in registers, where the online softmax
-//   reads it in the accumulator layout (rows g and g+8 of the warp's
-//   tile, columns 2*tig, 2*tig+1 of each 8-key slice).  P feeds P V as
-//   the A operand straight from those registers, split into a high and
-//   a low half in the input type (P = hi + lo), so the product keeps
-//   ~16 bits of P where one rounding to bf16 would keep 8: the result
-//   stays as close to flash_ref's f32 product as the CUDA-core path.
-//   Q and K are row-major in shared memory, V transposed, each row
-//   padded by 16 bytes so the fragment loads hit 32 distinct banks.
-// * everything else (f32, D = 256, unaligned views): the CUDA-core path.
+// The TMA + wgmma path.  One CTA of 3 warpgroups per (b*Hq + h, 128-row
+// q-block); q-blocks run last to first, so the longest causal blocks
+// start first and the short ones fill the tail.
+// * Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec
+//   to 24) and one thread issues every TMA load.  Q is loaded once; K
+//   and V go through a 2-stage ring with a full and an empty mbarrier
+//   per stage and operand, so K of the next tile lands while the
+//   consumers still read V of this one.  The tensor maps are built on
+//   the host at each call: 4-D (D, S, H, B) with the views' own strides,
+//   boxes of 64 columns (128 bytes, 128-byte swizzle) by the tile's
+//   rows, the kv head coordinate h / group.  TMA fills rows past Sq or
+//   Skv with zeros, so no load is bounds-checked; the mask decides which
+//   keys count.  cuTensorMapEncodeTiled comes through
+//   cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// * Warpgroups 1 and 2 are the consumers (setmaxnreg.inc to 240), 64
+//   query rows each.  S = Q K^T is wgmma m64nBKk16 with both operands in
+//   shared memory (K-major, 128-byte swizzle descriptors), f32
+//   accumulators.  The online softmax runs on the accumulator fragment:
+//   a row's scores live in the 4 lanes of one quad, so the row max and
+//   sum take 2 shuffles; it works in the log2 domain (exp2 of scores
+//   pre-scaled by log2 e), and only tiles that cross the diagonal, the
+//   window's edge or Skv evaluate the mask.  O += P V is wgmma with A
+//   from registers (P in the accumulator layout is already wgmma's A
+//   fragment) and B = V as TMA laid it down, read through the
+//   descriptor's transpose (MN-major) bit: no hand transpose.
+// * P is split into an input-type hi + lo (hi the rounded P, lo the
+//   rounded residual) and both halves go through the product: it keeps
+//   ~16 bits of P where one rounding would keep 8 (bf16), so the result
+//   stays as close to flash_ref's f32 P V as the FMA path
+//   (tests/test_torch_attention.py holds an emulation of this contract
+//   against flash_ref).  The cost is a third product per tile.
+// * Per head dim: keys per tile BK = 128 at D <= 128 and 64 at D = 192
+//   and 256, so that Q (128 x D) and 2 stages of K and V (2 x BK x D
+//   each) fit in shared memory (80, 160, 144 and 192 KB) and a
+//   consumer thread holds O (D / 2 floats), S (BK / 2) and P hi + lo
+//   (BK / 2 registers) within 240 registers.
+// * Epilogue: O / l where l > 0, staged through the warpgroup's own rows
+//   of the Q tile (128-byte swizzled, no bank conflicts) and written
+//   with coalesced 16-byte stores.
 //
-// Head dims 64, 128, 192 and 256 are instantiated.  At D = 192 a warp of
-// the tensor-core path holds 24 output accumulator tiles (96 floats a
-// thread) beside its 32 score registers, inside the 255 a thread that
-// 128-thread blocks leave.
+// The FMA path: 256 threads as a 16 x 16 grid.  Thread (ty, tx) owns
+// query rows 4*ty .. 4*ty+3 of a 64-row block and, for the scores, key
+// columns tx + 16*c (c < 4) of the 64-key block; for the output,
+// head-dim columns tx + 16*c (c < D/16).  Q stays in shared memory as
+// f32; K and then V of the current key block share one f32 tile (rows
+// padded by one word against bank conflicts); P goes through a 64 x 65
+// f32 tile.  Ragged Sq / Skv are bounds masks; strides are taken for
+// every axis but the last.
 //
-// Bound on an H100 SXM: 4 * B * Hq * D * (visited q.k pairs) operations
-// at 989 TFLOP/s (bf16/f16 tensor-core peak; 67 TFLOP/s for f32 inputs)
+// Bound on an H100 SXM: 4 * B * Hq * D * (kept q.k pairs) operations at
+// 989 TFLOP/s (bf16/f16 tensor-core peak; 67 TFLOP/s for f32 inputs)
 // against (q + k + v + out) bytes at 3.35 TB/s; at prefill lengths the
-// operations bound it by far.  The tensor-core path issues mma.sync from
-// registers with no copy/compute overlap and spends three products per
-// tile where one would do (the P split), so it sits several times above
-// that bound; TMA, wgmma and warp specialization are later work.
+// operations bound it by far.  The P split makes the tensor-core path
+// do 3 products of 2 * D operations per pair where the bound counts 2,
+// so its floor is 1.5x the bound.  Not done here: ping-pong scheduling
+// of the two consumer warpgroups, intra-warpgroup overlap of softmax
+// and the products, a persistent tile scheduler, GQA head packing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // query rows per thread
-constexpr int kCols = 4;       // score columns per thread
+constexpr int kBQ = 64;        // FMA path: query rows per CTA
+constexpr int kBK = 64;        // FMA path: keys per tile
+constexpr int kThreads = 256;  // FMA path: 16 x 16
+constexpr int kRows = 4;       // FMA path: query rows per thread
+constexpr int kCols = 4;       // FMA path: score columns per thread
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
@@ -277,35 +308,27 @@ flash_fwd_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core path (bf16 / f16, D = 64 or 128)
+// TMA + wgmma path (bf16 / f16, aligned rows)
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kTmaBQ = 128;       // query rows per CTA: 2 consumer warpgroups
+constexpr int kTmaThreads = 384;  // producer warpgroup + 2 consumers
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(
-    float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <int D>
+struct TmaTile {
+  static constexpr int kBK = D <= 128 ? 128 : 64;  // keys per tile
+  static constexpr int kStages = 2;                // depth of the K/V ring
+  static constexpr int kPanels = D / 64;           // 64-column panels
+  // every tile is kPanels panels of (rows x 128 bytes), 128-byte swizzled
+  static constexpr uint32_t kQPanel = kTmaBQ * 128;
+  static constexpr uint32_t kQBytes = kQPanel * kPanels;
+  static constexpr uint32_t kKVPanel = kBK * 128;
+  static constexpr uint32_t kKVBytes = kKVPanel * kPanels;
+  static constexpr uint32_t kBars = kQBytes + 2 * kStages * kKVBytes;
+  // barriers: q_full, then k_full, v_full, k_empty, v_empty per stage;
+  // 1024 bytes of slack align the tiles to the swizzle's 1024-byte atom
+  static constexpr uint32_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+};
 
 // two floats -> one register of two T (x in the low half)
 template <typename T>
@@ -331,209 +354,506 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   lo = pack2<T>(x - to_f32<T>(h[0]), y - to_f32<T>(h[1]));
 }
 
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows [row0, row0 + 64) of a (rows, D) head slice -> a T tile with a
-// pitch of P elements, 16 bytes per load; rows at or past n read as 0.
-// ``transpose`` stores the tile as (D, 64) instead (V: key-contiguous).
-template <typename T, int D, int P, bool transpose>
-__device__ __forceinline__ void load_tile16(T* tile, const T* base,
-                                            long long stride, long long row0,
-                                            long long n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks in a row
-  for (int e = threadIdx.x; e < kBK * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks;
-    const int c = (e - r * kChunks) * 8;
-    const long long row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) v = *reinterpret_cast<const uint4*>(base + row * stride + c);
-    if (transpose) {
-      const T* x = reinterpret_cast<const T*>(&v);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or reuses of registers that an
+// in-flight wgmma owns across this point
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tile[(c + i) * P + r] = x[i];
-    } else {
-      *reinterpret_cast<uint4*>(tile + r * P + c) = v;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma.mma_async, f32 accumulators: SS (A and B descriptors, both
+// K-major) at N = 64 and 128 with scale-d from ``scale_d``, and RS (A
+// from registers, B descriptor MN-major) at N = 64, accumulating.
+#define FLASH_WGMMA_SS_N64(NAME, TY) \
+  __device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
+                                       uint64_t b, int scale_d) { \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+        : "l"(a), "l"(b), "r"(scale_d)); \
+  }
+
+#define FLASH_WGMMA_SS_N128(NAME, TY) \
+  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t a, \
+                                       uint64_t b, int scale_d) { \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+        : "l"(a), "l"(b), "r"(scale_d)); \
+  }
+
+#define FLASH_WGMMA_RS_N64(NAME, TY) \
+  __device__ __forceinline__ void NAME(float (&d)[32], const uint32_t (&a)[4], \
+                                       uint64_t b) { \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
+  }
+
+
+FLASH_WGMMA_SS_N64(wgmma_ss64_bf16, "bf16")
+FLASH_WGMMA_SS_N64(wgmma_ss64_f16, "f16")
+FLASH_WGMMA_SS_N128(wgmma_ss128_bf16, "bf16")
+FLASH_WGMMA_SS_N128(wgmma_ss128_f16, "f16")
+FLASH_WGMMA_RS_N64(wgmma_rs64_bf16, "bf16")
+FLASH_WGMMA_RS_N64(wgmma_rs64_f16, "f16")
+
+template <typename T> struct Wgmma;
+template <> struct Wgmma<__nv_bfloat16> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    wgmma_ss64_bf16(d, a, b, scale_d);
+  }
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    wgmma_ss128_bf16(d, a, b, scale_d);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs64_bf16(d, a, b);
+  }
+};
+template <> struct Wgmma<__half> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    wgmma_ss64_f16(d, a, b, scale_d);
+  }
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    wgmma_ss128_f16(d, a, b, scale_d);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs64_f16(d, a, b);
+  }
+};
+
+// 2^x in one MUFU instruction (2^-inf = 0; results below 2^-126 flush
+// to 0, far under anything a bf16/f16 P keeps)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Mask (when kMasked), online softmax and the l update on one score tile
+// in the wgmma accumulator layout: s[4 t + e] is row r0 + 8 (e >> 1),
+// column k0 + 8 t + 2 tig + (e & 1).  Scores leave as p = exp2(x - m)
+// in the log2 domain, masked lanes exactly 0; alpha rescales O.
+template <int BK, bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             const Params& p, float qk_scale,
+                                             float cap_log2, int win, int r0,
+                                             int k0, int tig) {
+  uint32_t keep[BK / 64];
+  float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+  for (int w = 0; w < BK / 64; ++w) keep[w] = 0u;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float x = s[i] * qk_scale;
+    if (p.softcap > 0.f) x = cap_log2 * tanhf(x);
+    if (kMasked) {
+      const int row = r0 + 8 * ((i & 3) >> 1);
+      const int col = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+      bool ok = col < p.Skv;
+      if (p.causal) ok = ok && col <= row;
+      if (win > 0) ok = ok && col > row - win;
+      if (ok) keep[i / 32] |= 1u << (i % 32);
+      x = ok ? x : kMaskValue;
     }
+    s[i] = x;
+    mx[(i & 3) >> 1] = fmaxf(mx[(i & 3) >> 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = fast_exp2(m[r] - m_new);  // exp2(-inf) = 0 on the first tile
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i & 3) >> 1;
+    float e = fast_exp2(s[i] - m[r]);
+    if (kMasked) e = (keep[i / 32] >> (i % 32)) & 1u ? e : 0.f;
+    s[i] = e;
+    l[r] += e;
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_mma_kernel(const Params p) {
-  constexpr int PQ = D + 8;     // pitch of Q and K (elements)
-  constexpr int PV = kBK + 8;   // pitch of transposed V
-  constexpr int kNT = kBK / 8;  // 8-key slices of a score tile
-  constexpr int kOT = D / 8;    // 8-dim slices of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // kBQ x PQ
-  T* k_s = q_s + kBQ * PQ;                   // kBK x PQ
-  T* vt_s = k_s + kBK * PQ;                  // D x PV
+__global__ void __launch_bounds__(kTmaThreads, 1)
+flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using C = TmaTile<D>;
+  constexpr int BK = C::kBK;
+  constexpr int S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + C::kQBytes;          // stage s at + s * kKVBytes
+  const uint32_t v_s = k_s + S * C::kKVBytes;
+  const uint32_t q_full = q_s + C::kBars;
+  const uint32_t k_full = q_full + 8;             // stage s at + 8 * s
+  const uint32_t v_full = k_full + 8 * S;
+  const uint32_t k_empty = v_full + 8 * S;
+  const uint32_t v_empty = k_empty + 8 * S;
 
-  const long long bh = blockIdx.x;
-  const long long b = bh / p.Hq;
-  const long long h = bh - b * p.Hq;
-  const long long hk = h / (p.Hq / p.Hkv);
-  const long long q0 = static_cast<long long>(blockIdx.y) * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // accumulator row within the 8-row half
-  const int tig = lane & 3;  // accumulator column pair
-  const int r0 = warp * 16 + g;
-  const long long row_a = q0 + r0;  // rows of c0/c1 and of c2/c3
-  const long long row_b = row_a + 8;
+  const int bh = blockIdx.x;
+  const int Hq = static_cast<int>(p.Hq);
+  const int b = bh / Hq;
+  const int h = bh - b * Hq;
+  const int hk = h / (Hq / static_cast<int>(p.Hkv));
+  // last q-block first: causal blocks with the most keys start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTmaBQ;
+  const int Skv = static_cast<int>(p.Skv);
+  const int win = p.window > 0 ? static_cast<int>(p.window) : 0;
 
-  const T* qh = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* kh = static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh;
-  const T* vh = static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh;
-
-  load_tile16<T, D, PQ, false>(q_s, qh, p.qss, q0, p.Sq);
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad last
-  float acc[kOT][4];
-#pragma unroll
-  for (int t = 0; t < kOT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-
-  const long long nk = (p.Skv + kBK - 1) / kBK;
-  long long k_hi = nk;
-  if (p.causal) {
-    const long long last = (q0 + kBQ - 1) / kBK + 1;
-    k_hi = last < nk ? last : nk;
+  // the k-blocks the visit predicate keeps (flash_attention.py:53-57)
+  const int nk = (Skv + BK - 1) / BK;
+  int k_hi = nk;
+  if (p.causal) k_hi = min(nk, (q0 + kTmaBQ - 1) / BK + 1);
+  int k_lo = 0;
+  if (win > 0) {
+    const int lo = q0 - win - BK + 1;  // first block with k0 + BK > q0 - win
+    k_lo = lo > 0 ? (lo + BK - 1) / BK : 0;
   }
-  long long k_lo = 0;
-  if (p.window > 0) {
-    const long long lo = q0 - p.window - kBK + 1;
-    k_lo = lo > 0 ? (lo + kBK - 1) / kBK : 0;
+  const int n = k_hi > k_lo ? k_hi - k_lo : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (long long kb = k_lo; kb < k_hi; ++kb) {
-    const long long k0 = kb * kBK;
-    __syncthreads();  // the previous block's K and V reads are done
-    load_tile16<T, D, PQ, false>(k_s, kh, p.kss, k0, p.Skv);
-    load_tile16<T, D, PV, true>(vt_s, vh, p.vss, k0, p.Skv);
-    __syncthreads();
-
-    // S = Q K^T: a 16 x 64 tile per warp, 8 accumulators of 16 x 8
-    float s[kNT][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the TMA ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && n > 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-    for (int t = 0; t < kNT; ++t)
+      for (int c = 0; c < C::kPanels; ++c)
+        tma_load(q_s + c * C::kQPanel, &qmap, q_full, 64 * c, q0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S;
+        const uint32_t ph = (i / S) & 1;
+        const int k0 = (k_lo + i) * BK;
+        const uint32_t off = s * C::kKVBytes;
+        mbar_wait(k_empty + 8 * s, ph ^ 1);  // the first round passes
+        mbar_expect_tx(k_full + 8 * s, C::kKVBytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+        for (int c = 0; c < C::kPanels; ++c)
+          tma_load(k_s + off + c * C::kKVPanel, &kmap, k_full + 8 * s,
+                   64 * c, k0, hk, b);
+        mbar_wait(v_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * s, C::kKVBytes);
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const T* qa = q_s + r0 * PQ + kk + 2 * tig;
-      const uint32_t a0 = lds32(qa), a1 = lds32(qa + 8 * PQ);
-      const uint32_t a2 = lds32(qa + 8), a3 = lds32(qa + 8 * PQ + 8);
-#pragma unroll
-      for (int t = 0; t < kNT; ++t) {
-        const T* kb_ = k_s + (t * 8 + g) * PQ + kk + 2 * tig;
-        mma16816<T>(s[t], a0, a1, a2, a3, lds32(kb_), lds32(kb_ + 8));
+        for (int c = 0; c < C::kPanels; ++c)
+          tma_load(v_s + off + c * C::kKVPanel, &vmap, v_full + 8 * s,
+                   64 * c, k0, hk, b);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int tig = lane & 3;
+    const int w_lo = q0 + 64 * wg;               // the warpgroup's first row
+    const int r0 = w_lo + 16 * warp + (lane >> 2);  // and r0 + 8
+    const uint32_t q_wg = q_s + 64 * 128 * wg;   // its rows of each Q panel
 
-    // mask and online softmax; a row's 64 scores live in the 4 lanes of
-    // one quad (16 each)
-    uint32_t keep = 0u;
-    float mx[2] = {kMaskValue, kMaskValue};
+    const bool capped = p.softcap > 0.f;
+    const float qk_scale = capped ? p.sm_scale / p.softcap
+                                  : p.sm_scale * kLog2e;
+    const float cap_log2 = p.softcap * kLog2e;
+
+    // O as one accumulator fragment per 64-column panel
+    float o[C::kPanels][32];
 #pragma unroll
-    for (int t = 0; t < kNT; ++t)
+    for (int c = 0; c < C::kPanels; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long row = e < 2 ? row_a : row_b;
-        const long long col = k0 + t * 8 + 2 * tig + (e & 1);
-        float x = s[t][e] * p.sm_scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = col < p.Skv;
-        if (p.causal) ok = ok && col <= row;
-        if (p.window > 0) ok = ok && col > row - p.window;
-        if (ok) keep |= 1u << (t * 4 + e);
-        s[t][e] = ok ? x : kMaskValue;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+      for (int j = 0; j < 32; ++j) o[c][j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad last
+
+    if (n > 0) mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % S;
+      const uint32_t ph = (i / S) & 1;
+      const int k0 = (k_lo + i) * BK;
+      const uint32_t off = s * C::kKVBytes;
+
+      // S = Q K^T.  The descriptors are built from bases made opaque
+      // here, so that no step's descriptor is hoisted out of the loop and
+      // held in registers across it.
+      uint32_t q_base = q_wg;
+      asm volatile("" : "+r"(q_base));
+      const uint64_t qd = sw128_desc(q_base, 16, 1024);
+      const uint64_t kd = sw128_desc(k_s + off, 16, 1024);
+      float sc[BK / 2];
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // 16 columns: panel kk / 4, bytes 32 (kk % 4) of each 128-byte row
+        const uint32_t col = (kk % 4) * 32;
+        Wgmma<T>::ss(sc, qd + (((kk / 4) * C::kQPanel + col) >> 4),
+                     kd + (((kk / 4) * C::kKVPanel + col) >> 4), kk > 0);
       }
-    float alpha[2];
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+
+      // mask and online softmax; only tiles that cross the diagonal, the
+      // window's edge or Skv evaluate the mask
+      const bool full = k0 + BK <= Skv &&
+                        (!p.causal || k0 + BK - 1 <= w_lo) &&
+                        (win <= 0 || k0 > w_lo + 63 - win);
+      float alpha[2];
+      if (full)
+        softmax_tile<BK, false>(sc, m, l, alpha, p, qk_scale, cap_log2, win,
+                                r0, k0, tig);
+      else
+        softmax_tile<BK, true>(sc, m, l, alpha, p, qk_scale, cap_log2, win,
+                               r0, k0, tig);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);  // exp(-inf) = 0 on the first block
-      m[i] = m_new;
-      l[i] *= alpha[i];
+      for (int c = 0; c < C::kPanels; ++c)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) o[c][j] *= alpha[(j >> 1) & 1];
+
+      // P = hi + lo in the input type, in wgmma's A-fragment layout: the
+      // 16 keys of step kt are score columns 16 kt .. 16 kt + 15
+      uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split2<T>(sc[8 * kt + 2 * r], sc[8 * kt + 2 * r + 1], p_hi[kt][r],
+                    p_lo[kt][r]);
+
+      // O += P V; V's tile is (BK keys x D) with D contiguous: MN-major
+      // B (leading offset: the next 64-column panel, unused at N = 64;
+      // stride offset: the next 8 keys), 16 keys = 2048 bytes per step
+      const uint64_t vd = sw128_desc(v_s + off, C::kKVPanel, 1024);
+      mbar_wait(v_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+        for (int c = 0; c < C::kPanels; ++c) {
+          const uint64_t d = vd + ((c * C::kKVPanel + kt * 2048) >> 4);
+          Wgmma<T>::rs(o[c], p_hi[kt], d);
+          Wgmma<T>::rs(o[c], p_lo[kt], d);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < C::kPanels; ++c) reg_fence(o[c]);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      if (lane == 0) mbar_arrive(v_empty + 8 * s);
+    }
+
+    // epilogue: O / l, staged through this warpgroup's rows of the Q
+    // tile (its wgmmas have retired) in the same swizzled panels, then
+    // written with 16-byte stores; the tile is contiguous in ``out``
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 1.f;
     }
 #pragma unroll
-    for (int t = 0; t < kNT; ++t)
+    for (int c = 0; c < C::kPanels; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = (keep >> (t * 4 + e)) & 1u
-                             ? expf(s[t][e] - m[e >> 1]) : 0.f;
-        s[t][e] = pe;
-        l[e >> 1] += pe;
-      }
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int t = 0; t < kOT; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + (lane >> 2) + 8 * r;
+          const uint32_t a = q_wg + c * C::kQPanel + row * 128 +
+                             ((j ^ (row & 7)) << 4) + tig * 4;
+          const uint32_t v = pack2<T>(o[c][4 * j + 2 * r] * inv[r],
+                                      o[c][4 * j + 2 * r + 1] * inv[r]);
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v)
+                       : "memory");
+        }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    constexpr int kChunks = D / 8;  // 16-byte chunks in a row
+    const int rows = min(64, static_cast<int>(p.Sq) - w_lo);
+    T* out = static_cast<T*>(p.out) +
+             (static_cast<long long>(bh) * p.Sq + w_lo) * D;
+    for (int e = t; e < rows * kChunks; e += 128) {
+      const int row = e / kChunks;
+      const int ch = e - row * kChunks;
+      const uint32_t a = q_wg + (ch / 8) * C::kQPanel + row * 128 +
+                         (((ch % 8) ^ (row & 7)) << 4);
+      uint4 v;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(a)
+                   : "memory");
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * D +
+                                ch * 8) = v;
     }
-
-    // O += P V, 16 keys at a time; P = hi + lo in the input type
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
-      split2<T>(s[2 * j][0], s[2 * j][1], h0, l0);
-      split2<T>(s[2 * j][2], s[2 * j][3], h1, l1);
-      split2<T>(s[2 * j + 1][0], s[2 * j + 1][1], h2, l2);
-      split2<T>(s[2 * j + 1][2], s[2 * j + 1][3], h3, l3);
-#pragma unroll
-      for (int t = 0; t < kOT; ++t) {
-        const T* vb = vt_s + (t * 8 + g) * PV + j * 16 + 2 * tig;
-        const uint32_t b0 = lds32(vb), b1 = lds32(vb + 8);
-        mma16816<T>(acc[t], h0, h1, h2, h3, b0, b1);
-        mma16816<T>(acc[t], l0, l1, l2, l3, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  T* oh = static_cast<T*>(p.out) + (b * p.Hq + h) * p.Sq * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long row = i ? row_b : row_a;
-    if (row >= p.Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 1.f;
-#pragma unroll
-    for (int t = 0; t < kOT; ++t)
-      *reinterpret_cast<uint32_t*>(oh + row * D + t * 8 + 2 * tig) =
-          pack2<T>(acc[t][2 * i] * inv, acc[t][2 * i + 1] * inv);
   }
 }
 
-template <typename T, int D>
-int launch_mma(const Params& p, cudaStream_t st) {
-  constexpr size_t smem =
-      sizeof(T) * (static_cast<size_t>(kBQ + kBK) * (D + 8) +
-                   static_cast<size_t>(D) * (kBK + 8));
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(p.B * p.Hq),
-                  static_cast<unsigned>((p.Sq + kBQ - 1) / kBQ));
-  flash_mma_kernel<T, D><<<grid, kMmaThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
 }
 
-// the tensor-core path reads 16-byte chunks: every row start must be
-// 16-byte aligned
+// the TMA path reads every row through a tensor map, which takes
+// 16-byte aligned bases and strides that are 16-byte multiples in
+// [16, 2^40): every row start must be 16-byte aligned
 inline bool rows_aligned16(const Params& p) {
   const auto al = [](const void* x) {
     return reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -541,12 +861,65 @@ inline bool rows_aligned16(const Params& p) {
   const long long s[9] = {p.qsb, p.qsh, p.qss, p.ksb, p.ksh,
                           p.kss, p.vsb, p.vsh, p.vss};
   for (long long x : s)
-    if (x % 8) return false;
+    if (x % 8 || x <= 0 || x >= (1LL << 39)) return false;
   return al(p.q) && al(p.k) && al(p.v) && al(p.out);
 }
 
+// a (B, H, S, D) view with element strides (sb, sh, ss, 1) as a 4-D map
+// (D, S, H, B) read in boxes of 64 columns x ``rows``, 128-byte swizzle,
+// zeros past the edges; 0 or -CUresult
+template <typename T>
+int encode_map(CUtensorMap* map, const void* ptr, long long B, long long H,
+               long long S, int D, long long sb, long long sh, long long ss,
+               int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * sizeof(T),
+                                 static_cast<cuuint64_t>(sh) * sizeof(T),
+                                 static_cast<cuuint64_t>(sb) * sizeof(T)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+template <typename T, int D>
+int launch_tma(const Params& p, cudaStream_t st) {
+  using C = TmaTile<D>;
+  if (p.Sq >= (1LL << 30) || p.Skv >= (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);  // int tile coordinates
+  CUtensorMap qm, km, vm;
+  int rc = encode_map<T>(&qm, p.q, p.B, p.Hq, p.Sq, D, p.qsb, p.qsh, p.qss,
+                         kTmaBQ);
+  if (rc == 0)
+    rc = encode_map<T>(&km, p.k, p.B, p.Hkv, p.Skv, D, p.ksb, p.ksh, p.kss,
+                       C::kBK);
+  if (rc == 0)
+    rc = encode_map<T>(&vm, p.v, p.B, p.Hkv, p.Skv, D, p.vsb, p.vsh, p.vss,
+                       C::kBK);
+  if (rc != 0) return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_tma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(p.B * p.Hq),
+                  static_cast<unsigned>((p.Sq + kTmaBQ - 1) / kTmaBQ));
+  flash_tma_kernel<T, D><<<grid, kTmaThreads, C::kSmem, st>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
-// CUDA-core path
+// FMA path
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t smem_bytes() {
@@ -579,14 +952,17 @@ int dispatch_d(const Params& p, long long D, cudaStream_t st) {
   }
 }
 
+// bf16 / f16: the TMA path wherever the views allow it
 template <typename T>
 int dispatch_tc(const Params& p, long long D, cudaStream_t st) {
-  if (rows_aligned16(p)) {
-    if (D == 64) return launch_mma<T, 64>(p, st);
-    if (D == 128) return launch_mma<T, 128>(p, st);
-    if (D == 192) return launch_mma<T, 192>(p, st);
+  if (!rows_aligned16(p)) return dispatch_d<T>(p, D, st);
+  switch (D) {
+    case 64: return launch_tma<T, 64>(p, st);
+    case 128: return launch_tma<T, 128>(p, st);
+    case 192: return launch_tma<T, 192>(p, st);
+    case 256: return launch_tma<T, 256>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_d<T>(p, D, st);
 }
 
 }  // namespace
@@ -595,7 +971,7 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a shape or dtype the kernel
-// does not take).
+// does not take), or -CUresult when a TMA tensor map fails to encode.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int dtype, long long B, long long Hq,
                         long long Hkv, long long Sq, long long Skv,

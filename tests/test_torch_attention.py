@@ -6,13 +6,19 @@ version ``flash_ref``, under both ``fused`` and ``composite``) and
 through the JAX package's Pallas ``flash_attention`` in interpret mode
 and its ``attention_ref``.  Cases cover causal and non-causal masks, a
 sliding window, a softcap, GQA groups 1 / 2 / 4, ``Sq != Skv``, lengths
-that are not block multiples and fully masked rows.
+that are not block multiples and fully masked rows.  ``attention_flops``
+(the kernel's bound) is held against a brute-force count of the mask,
+and a plain emulation of the tensor-core kernel's arithmetic (bf16
+products summed in f32, P split into bf16 hi + lo, each P V product in
+f32) against ``flash_ref``.
 
 Tolerances: float32 ``1e-5`` (the two packages sum in f32 in another
 order); bfloat16 ``2e-2`` absolute and relative (both round the f32
 result to bfloat16 once, and their inputs to the products differ by
 rounding only where the JAX kernel upcasts blocks).
 """
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -131,3 +137,94 @@ def test_attention_flops_counts_kept_pairs():
                               window=2) == 4 * 8 * 7
     assert fa.attention_flops(2, 3, 4, 6, 8, causal=False,
                               window=None) == 4 * 2 * 3 * 8 * 24
+
+
+# (B, Hq, Sq, Skv, D, causal, window)
+FLOPS_CASES = [
+    (1, 2, 61, 24, 16, True, 8),         # Skv < Sq, window
+    (1, 2, 61, 24, 16, False, 8),        # window without causal
+    (1, 4, 24, 61, 16, True, None),      # Sq < Skv
+    (2, 3, 90, 30, 16, True, 12),        # rows >= 41 keep no key
+    (1, 1, 1, 33, 32, True, None),       # Sq = 1
+    (2, 10, 300, 300, 256, True, 128),   # recurrentgemma-like: group 10,
+    (1, 10, 257, 257, 256, True, 300),   # window < Sq and window > Sq
+]
+
+
+@pytest.mark.parametrize("case", FLOPS_CASES, ids=str)
+def test_attention_flops_matches_a_brute_force_mask_count(case):
+    B, Hq, Sq, Skv, D, causal, window = case
+    kept = sum(1 for i in range(Sq) for j in range(Skv)
+               if (not causal or j <= i)
+               and (window is None or j > i - window))
+    assert fa.attention_flops(B, Hq, Sq, Skv, D, causal=causal,
+                              window=window) == 4 * B * Hq * D * kept
+
+
+def _emulate_tensor_core_path(q, k, v, *, causal, window, block_k, split):
+    """The bf16 tensor-core kernel's arithmetic in plain f32: per key
+    tile, S = Q K^T from bf16 inputs summed in f32, the online softmax in
+    f32 with masked lanes at the mask value and then 0, P rounded to bf16
+    as ``hi`` (and, with ``split``, the residual as ``lo``), each
+    product with V summed in f32; O / l where l > 0."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    group = Hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    mask_value = torch.tensor(-0.7 * torch.finfo(torch.float32).max)
+    m = torch.full((B, Hq, Sq, 1), -math.inf)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block_k):
+        cols = torch.arange(k0, min(k0 + block_k, Skv))[None, :]
+        keep = torch.ones(Sq, cols.shape[1], dtype=torch.bool)
+        if causal:
+            keep &= cols <= rows
+        if window is not None:
+            keep &= cols > rows - window
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) / math.sqrt(D)
+        s = torch.where(keep, s, mask_value)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(s - m_new), torch.tensor(0.0))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        m = m_new
+        hi = p.to(q.dtype).float()
+        pv = hi @ vf[:, :, k0:k0 + block_k]
+        if split:
+            lo = (p - hi).to(q.dtype).float()
+            pv = pv + lo @ vf[:, :, k0:k0 + block_k]
+        acc = acc * alpha + pv
+    return torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, block_k): the kernel's key
+# tile is 128 at D <= 128 and 64 at D = 192 and 256
+EMULATION_CASES = [
+    (1, 2, 2, 200, 200, 64, True, None, 128),
+    (1, 4, 2, 257, 257, 128, True, None, 128),
+    (2, 6, 1, 129, 300, 128, False, None, 128),
+    (1, 4, 4, 200, 200, 192, True, None, 64),
+    (1, 10, 1, 300, 300, 256, True, 128, 64),
+]
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES, ids=str)
+def test_split_p_keeps_the_tensor_core_path_at_f32_accuracy(case):
+    """The P split is why the bf16 kernel stays as close to flash_ref's
+    f32 P V as the f32 kernel (1e-4): one bf16 rounding of P lands
+    several times further out than that tolerance."""
+    q, k, v = (_torch(a) for a in _inputs(case, "bfloat16", seed=11))
+    causal, window, block_k = case[6:]
+    want = ref.flash_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    kw = dict(causal=causal, window=window, block_k=block_k)
+    split = _emulate_tensor_core_path(q, k, v, split=True, **kw)
+    single = _emulate_tensor_core_path(q, k, v, split=False, **kw)
+    torch.testing.assert_close(split, want, atol=2e-2, rtol=2e-2)
+    err_split = float((split - want).abs().max())
+    err_single = float((single - want).abs().max())
+    assert err_split < 1e-4 < err_single, (err_split, err_single)

@@ -113,7 +113,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 FLASH_CASES = [
-    # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap)
+    # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap[, layout]);
+    # bfloat16/float16 with 16-byte rows run the TMA + wgmma kernel (key
+    # tiles of 128 at D <= 128, 64 at D = 192 and 256), float32 and
+    # layout "pad" the FMA kernel
     (2, 4, 4, 70, 70, 64, True, None, 0.0),
     (1, 6, 1, 129, 129, 128, True, None, 0.0),
     (2, 8, 1, 100, 100, 256, False, None, 0.0),
@@ -124,15 +127,49 @@ FLASH_CASES = [
     (2, 4, 4, 150, 150, 192, True, None, 0.0),        # MLA's head dim
     (1, 4, 4, 77, 77, 192, False, None, 0.0),
     (2, 4, 4, 1, 90, 192, True, None, 0.0),
+    # lengths that are no multiple of the 128-row q-block or a key tile
+    (1, 6, 1, 129, 200, 128, True, None, 0.0),
+    (1, 8, 1, 200, 129, 256, False, None, 0.0),
+    (1, 4, 4, 1000, 1000, 192, True, None, 0.0),
+    (1, 2, 2, 1000, 1000, 64, False, None, 0.0),
+    # Skv < Sq: rows i >= Skv + window - 1 keep no key and give 0
+    (1, 6, 1, 1000, 200, 128, True, 100, 0.0),
+    (1, 8, 1, 300, 129, 256, True, 16, 0.0),
+    # windows shorter than one key tile, longer than several
+    (1, 8, 1, 700, 700, 64, True, 5, 0.0),
+    (1, 8, 1, 700, 700, 192, True, 40, 0.0),
+    (1, 10, 1, 1000, 1000, 256, True, 300, 0.0),
+    (1, 6, 1, 1000, 1000, 128, False, 450, 0.0),
+    # GQA groups 6, 8 and 10 at D = 256 (recurrentgemma's local attention
+    # is group 10, window 2048)
+    (2, 6, 1, 200, 200, 256, True, None, 0.0),
+    (1, 16, 2, 200, 200, 256, True, 64, 0.0),
+    (1, 10, 1, 1000, 1000, 256, True, 2048, 0.0),
+    # q, k, v as the models pass them: (B, S, H, D) viewed as (B, H, S, D)
+    (2, 12, 2, 300, 300, 128, True, None, 0.0, "bshd"),
+    (1, 16, 16, 200, 200, 192, True, None, 0.0, "bshd"),
+    (1, 10, 1, 500, 500, 256, True, 128, 0.0, "bshd"),
+    (2, 8, 8, 129, 129, 64, False, None, 20.0, "bshd"),
+    # rows D + 4 elements apart: no 16-byte multiple in bf16/f16
+    (1, 4, 2, 150, 150, 128, True, None, 0.0, "pad"),
+    (1, 4, 4, 90, 90, 256, True, 32, 0.0, "pad"),
 ]
 
 
 def _flash_inputs(case, dtype, seed):
     B, Hq, Hkv, Sq, Skv, D = case[:6]
+    layout = case[9] if len(case) > 9 else "bhsd"
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    mk = lambda h, s: torch.randn((B, h, s, D), generator=g,
-                                  device="cuda").to(dt)
+
+    def mk(h, s):
+        if layout == "bshd":
+            return torch.randn((B, s, h, D), generator=g,
+                               device="cuda").to(dt).transpose(1, 2)
+        if layout == "pad":
+            return torch.randn((B, h, s, D + 4), generator=g,
+                               device="cuda").to(dt)[..., :D]
+        return torch.randn((B, h, s, D), generator=g, device="cuda").to(dt)
     return mk(Hq, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
 
 
@@ -142,7 +179,7 @@ def _flash_inputs(case, dtype, seed):
 def test_flash_kernel_matches_flash_ref_on_card(case, dtype):
     _need_card()
     q, k, v = _flash_inputs(case, dtype, seed=len(str(case)))
-    causal, window, softcap = case[6:]
+    causal, window, softcap = case[6:9]
     before = rc.launch_counts["flash_attention"]
     got = fa.flash_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap)
