@@ -7,7 +7,8 @@ each hand-written kernel against its plain PyTorch version:
 * phase 0: build the kernels from ``src/repro_torch/kernels/csrc`` (one
   ``nvcc`` per source, all started together); count the ``HGMMA``
   (``wgmma``) instructions in the flash library's SASS and read ptxas'
-  registers and spills of its TMA kernel (none may spill);
+  registers and spills of each of its TMA kernel's 8 instantiations
+  (all must be read, none may spill);
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
@@ -33,7 +34,10 @@ each hand-written kernel against its plain PyTorch version:
   multiple, recurrentgemma-2b's local attention (head dim 256, group
   10, causal window 2048) and deepseek-v2-lite's MLA (head dim 192, 16
   heads), in float32 (within 1e-4), bfloat16 and float16 (within 2e-2
-  absolute and relative); also timed at deepseek's prefill shape (4 x
+  absolute and relative, and within 1e-4 plus 1e-2 (bf16) or 2e-3
+  (f16) of ``|flash_ref|``: one ulp of the output), with bfloat16 also
+  held against ``flash_ref`` on float32 copies of its inputs (within
+  half an output ulp plus 1e-4: what the P split buys); also timed at deepseek's prefill shape (4 x
   16 x 4096 x 192) and at recurrentgemma-2b's local attention (q 4 x
   10 x 4096 x 256, k and v 4 x 1 x 4096 x 256, causal window 2048,
   SDPA with a boolean band mask), bfloat16;
@@ -694,6 +698,7 @@ FLASH_SWEEP = [
     (1, 6, 1, 129, 200, 128, True, None, 0.0),        # ragged tiles
     (1, 8, 1, 1000, 129, 64, True, 16, 0.0),          # window < a tile
     (1, 10, 1, 200, 1000, 256, False, 700, 0.0),      # window > 5 tiles
+    (1, 12, 2, 1000, 1000, 128, True, 2 ** 32 + 16, 0.0),  # > 2^31
     (2, 12, 2, 1000, 1000, 128, True, None, 0.0, "bshd"),
     (1, 16, 16, 1000, 1000, 192, True, None, 0.0, "bshd"),
     (1, 10, 1, 1000, 1000, 256, True, 300, 0.0, "bshd"),
@@ -701,6 +706,13 @@ FLASH_SWEEP = [
 ]
 FLASH_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2),
              "float16": (2e-2, 2e-2)}
+# the 16-bit outputs again, mostly relative: kernel and flash_ref sum in
+# f32 and round to the output type once, so they differ by one ulp at most
+FLASH_ULP_TOL = {"bfloat16": (1e-4, 1e-2), "float16": (1e-4, 2e-3)}
+# bfloat16 output against flash_ref on float32 copies of the inputs:
+# within half an output ulp plus this; P rounded once to bfloat16 (no
+# hi + lo split) lands about 1e-3 beyond half an ulp
+FLASH_SPLIT_ATOL = 1e-4
 
 
 def flash_inputs(gen, shape, dtype, layout="bhsd"):
@@ -720,7 +732,9 @@ def flash_inputs(gen, shape, dtype, layout="bhsd"):
 
 
 def flash_close(got, want, dtype, what):
-    """``max|got - want|`` after the tolerance check."""
+    """``max|got - want|`` after the tolerance checks, and (16-bit
+    dtypes) the largest share of the one-ulp gate ``FLASH_ULP_TOL`` that
+    an element uses (at most 1)."""
     import torch
     atol, rtol = FLASH_TOL[dtype]
     g, w = got.float(), want.float()
@@ -728,7 +742,31 @@ def flash_close(got, want, dtype, what):
     require(bool(torch.isfinite(g).all()) and bool(
         torch.isclose(g, w, atol=atol, rtol=rtol).all()),
         f"{what}: flash kernel vs flash_ref max|err| {err}")
-    return err
+    if dtype not in FLASH_ULP_TOL or not g.numel():
+        return err, None
+    atol, rtol = FLASH_ULP_TOL[dtype]
+    share = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+    require(share <= 1.0, f"{what}: flash kernel vs flash_ref beyond one "
+            f"ulp: |err| / ({atol} + {rtol} |want|) reaches {share}")
+    return err, share
+
+
+def flash_split_excess(got, q, k, v, what, **kw):
+    """bfloat16 ``got`` against ``flash_ref`` on float32 copies of q, k,
+    v: the largest ``|got - want| - ulp(want) / 2``, which must stay
+    under ``FLASH_SPLIT_ATOL``."""
+    import torch
+    from repro_torch.kernels import ref
+
+    want = ref.flash_ref(q.float(), k.float(), v.float(), **kw)
+    _, e = torch.frexp(want)              # |want| in [2^(e-1), 2^e)
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(-125) - 9))
+    excess = float(((got.float() - want).abs() - half_ulp).max())
+    require(excess <= FLASH_SPLIT_ATOL,
+            f"{what}: bfloat16 flash vs float32 flash_ref {excess} beyond "
+            f"half an ulp (P's hi + lo split lost?)")
+    return excess
 
 
 def phase_flash(report):
@@ -747,18 +785,29 @@ def phase_flash(report):
             want = ref.flash_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
             torch.cuda.synchronize()
-            err = flash_close(got, want, dtype, f"{dtype} {case}")
+            err, share = flash_close(got, want, dtype, f"{dtype} {case}")
+            row = {"case": list(case), "dtype": dtype, "max_abs_err": err,
+                   "ulp_gate_share": share}
+            if dtype == "bfloat16":
+                row["split_excess"] = flash_split_excess(
+                    got, q, k, v, f"{case}", causal=causal, window=window,
+                    softcap=softcap)
             if causal and window is not None and case[3] > case[4]:
                 dead = case[4] + window - 1
                 require(not got[:, :, dead:].float().abs().max().item(),
                         f"fully masked rows not exactly 0 in {case}")
-            sweep.append({"case": list(case), "dtype": dtype,
-                          "max_abs_err": err})
+            sweep.append(row)
+            del q, k, v, got, want
     report["flash_sweep"] = sweep
     out = flash_at(gen, QWEN_PREFILL, "qwen2 prefill shape")
     out["sweep_max_abs_err"] = {dt: max(r["max_abs_err"] for r in sweep
                                         if r["dtype"] == dt)
                                 for dt in FLASH_TOL}
+    out["sweep_max_ulp_gate_share"] = {
+        dt: max(r["ulp_gate_share"] for r in sweep if r["dtype"] == dt)
+        for dt in FLASH_ULP_TOL}
+    out["sweep_max_split_excess"] = max(
+        r["split_excess"] for r in sweep if "split_excess" in r)
     report["flash"] = out
     report["flash_d192"] = flash_at(gen, DEEPSEEK_PREFILL,
                                     "deepseek prefill shape")
@@ -784,8 +833,11 @@ def flash_at(gen, shape, what, window=None):
     got = run()
     want = ref.flash_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    err = flash_close(got, want, "bfloat16", what)
-    del got, want
+    err, share = flash_close(got, want, "bfloat16", what)
+    del want
+    excess = flash_split_excess(got, q, k, v, what, causal=True,
+                                window=window)
+    del got
     flops = fa.attention_flops(B, Hq, Sq, Skv, D, causal=True, window=window)
     nbytes = 2 * (q.nelement() + k.nelement() + v.nelement()
                   + q.nelement())
@@ -815,7 +867,8 @@ def flash_at(gen, shape, what, window=None):
         "bound_ms": bound * 1e3, "flops": flops, "bytes": nbytes,
         "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
         >= nbytes / HBM_BYTES_PER_S else "bytes",
-        "max_abs_err": err}
+        "max_abs_err": err, "ulp_gate_share": share,
+        "split_excess": excess}
     log(f"[flash {what}] {out['ms']:.3f} ms, {out['tflops']:.1f} TFLOP/s "
         f"(bound {out['bound_ms']:.3f}, plain {out['plain_ms']:.3f}, "
         f"sdpa {out['library_ms']:.3f})")
@@ -1910,8 +1963,9 @@ def profile_main_paths(shift, path):
 
 def flash_build(build_log, so_path):
     """What phase 0 built for flash: ``HGMMA`` (wgmma) instructions in
-    the library's SASS, and ptxas' registers and spills for each
-    instantiation of the TMA kernel (from this run's build log)."""
+    the library's SASS, and ptxas' registers and spills for each of the
+    TMA kernel's 8 instantiations (bf16/f16 x D 64/128/192/256), from the
+    compiler's output that ``cuda_build`` keeps beside the library."""
     import re
     from repro_torch.kernels import cuda_build
 
@@ -1939,8 +1993,13 @@ def flash_build(build_log, so_path):
                           if "C7512" in line]}
     log(f"[build] flash: {hgmma} HGMMA in the SASS; TMA kernels {kernels}")
     require(hgmma > 0, "flash: no wgmma (HGMMA) in libflash_attention.so")
-    require(not any(k.get("spill_bytes") for k in kernels.values()),
-            f"flash: the TMA kernel spills: {kernels}")
+    want = {f"{t} D={d}" for t in ("bf16", "f16") for d in (64, 128, 192,
+                                                           256)}
+    require(set(kernels) == want and all(
+        k.get("spill_bytes") == 0 and "registers" in k
+        for k in kernels.values()),
+        f"flash: ptxas must report 0 spill bytes and the registers of "
+        f"each of {sorted(want)}; the build log gave {kernels}")
     return out
 
 

@@ -983,6 +983,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
       B * Hq > 2147483647LL || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the same mask (i - j < Sq always), and a window the kernels hold in int
+  if (window > Sq) window = Sq;
   Params p{q, k, v, out, B, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
            vsb, vsh, vss, sm_scale, causal, window, softcap};
   const auto st = static_cast<cudaStream_t>(stream);

@@ -2,8 +2,9 @@
 
 Every source under ``csrc/`` has a plain C interface and is compiled on
 its own by ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch_kernels/<hash of source and flags>/lib<name>.so``,
-then loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per
+``build/repro_torch_kernels/<hash of source and flags>/lib<name>.so``
+(with the compiler's output beside it, ``lib<name>.log``), then loaded
+with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per
 source at once, so a fresh checkout pays for the slowest build only.
 
 The launch-count registry lives here too: each wrapper adds one to
@@ -83,8 +84,8 @@ class CudaLibrary:
         self.kernels = dict(kernels)
         self._lib = None
         self._lock = threading.Lock()
-        #: the compiler's output of the build this process ran (ptxas
-        #: register and shared-memory lines), empty when it was cached
+        #: the compiler's output (ptxas register, spill and shared-memory
+        #: lines), kept beside the library and read back when it is cached
         self.build_log = ""
         with _COUNT_LOCK:
             for k in self.kernels:
@@ -103,7 +104,7 @@ class CudaLibrary:
     def _start(self):
         """Start ``nvcc`` for this source (None when already built)."""
         lib = self._target()
-        if lib.exists():
+        if lib.exists() and lib.with_suffix(".log").exists():
             return None
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"lib{self.name}.{os.getpid()}.tmp.so")
@@ -114,13 +115,18 @@ class CudaLibrary:
 
     def _finish(self, started) -> Path:
         if started is None:
-            return self._target()
+            lib = self._target()
+            self.build_log = lib.with_suffix(".log").read_text()
+            return lib
         proc, tmp, lib = started
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.src}:\n{err}")
         self.build_log = err
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(err)
         os.replace(tmp, lib)
+        os.replace(tmp_log, lib.with_suffix(".log"))
         return lib
 
     def build(self) -> Path:

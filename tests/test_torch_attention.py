@@ -213,10 +213,14 @@ EMULATION_CASES = [
 
 
 @pytest.mark.parametrize("case", EMULATION_CASES, ids=str)
-def test_split_p_keeps_the_tensor_core_path_at_f32_accuracy(case):
-    """The P split is why the bf16 kernel stays as close to flash_ref's
-    f32 P V as the f32 kernel (1e-4): one bf16 rounding of P lands
-    several times further out than that tolerance."""
+def test_split_p_arithmetic_contract_stays_at_f32_accuracy(case):
+    """The arithmetic contract of the bf16 tensor-core kernel, emulated
+    here in plain f32 (not the kernel itself): with P split into bf16
+    hi + lo, the result stays as close to flash_ref's f32 P V as the f32
+    kernel (1e-4); one bf16 rounding of P lands several times further
+    out.  The kernel's own check of the split is
+    ``test_flash_kernel_splits_p_at_bf16`` in ``test_torch_cuda.py``,
+    on the card."""
     q, k, v = (_torch(a) for a in _inputs(case, "bfloat16", seed=11))
     causal, window, block_k = case[6:]
     want = ref.flash_ref(q.float(), k.float(), v.float(), causal=causal,

@@ -13,7 +13,10 @@ PyTorch:
 Tolerances: the codec kernels exactly (``torch.equal``) — they only
 move bytes; the flash kernel within ``1e-4`` in float32 and ``2e-2``
 (absolute and relative) in bfloat16 and float16 of ``flash_ref`` — both
-sum in f32, in another order, and round the output once; the model's
+sum in f32, in another order, and round the output once — and also
+within ``1e-4`` plus one output ulp (relative ``1e-2`` in bfloat16,
+``2e-3`` in float16), and in bfloat16 within half an ulp plus ``1e-4``
+of ``flash_ref`` on float32 copies of its inputs; the model's
 fused prefill within ``3e-2`` of the composite one in bfloat16, the
 tolerance of ``tests/test_arch_smoke.py``; the recurrence kernels and
 the recurrent models within the tolerances stated at their tests; the
@@ -140,6 +143,9 @@ FLASH_CASES = [
     (1, 8, 1, 700, 700, 192, True, 40, 0.0),
     (1, 10, 1, 1000, 1000, 256, True, 300, 0.0),
     (1, 6, 1, 1000, 1000, 128, False, 450, 0.0),
+    # a window above 2^31 keeps every key its causal mask keeps
+    (1, 6, 1, 300, 300, 128, True, 2 ** 32 + 16, 0.0),
+    (1, 4, 2, 200, 200, 256, False, 2 ** 31 + 5, 0.0),
     # GQA groups 6, 8 and 10 at D = 256 (recurrentgemma's local attention
     # is group 10, window 2048)
     (2, 6, 1, 200, 200, 256, True, None, 0.0),
@@ -192,10 +198,45 @@ def test_flash_kernel_matches_flash_ref_on_card(case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=0 if dtype == "float32" else tol)
     assert torch.isfinite(got.float()).all()
+    if dtype != "float32":
+        # both round an f32 sum to the output type once: one ulp apart
+        rtol = 1e-2 if dtype == "bfloat16" else 2e-3
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=rtol)
     if causal and window is not None and case[3] > case[4]:
         # top-left causal rows i >= Skv + window - 1 keep no key: exact 0
         dead = case[4] + window - 1
         assert not got[:, :, dead:].float().abs().max().item()
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window): few keys per row, where one
+# bfloat16 rounding of P shows most (about 1e-3 past half an ulp)
+SPLIT_CASES = [
+    (2, 4, 4, 64, 64, 64, False, None),
+    (1, 4, 2, 200, 200, 128, True, None),
+    (1, 4, 4, 150, 150, 192, True, None),
+    (1, 8, 1, 100, 100, 256, False, None),
+    (1, 10, 1, 300, 300, 256, True, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_flash_kernel_splits_p_at_bf16(case):
+    """bfloat16 inputs through the tensor-core kernel against flash_ref on
+    float32 copies: within half an output ulp plus 1e-4, which P rounded
+    once to bfloat16 (no hi + lo split) misses."""
+    _need_card()
+    q, k, v = _flash_inputs(case, "bfloat16", seed=len(str(case)))
+    causal, window = case[6:8]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    _, e = torch.frexp(want)                 # |want| in [2^(e-1), 2^e)
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(-125) - 9))
+    excess = float(((got.float() - want).abs() - half_ulp).max())
+    assert excess <= 1e-4, excess
 
 
 @pytest.mark.cuda
