@@ -8,12 +8,16 @@ each hand-written kernel against its plain PyTorch version:
   ``nvcc`` per source, all started together); count the ``HGMMA``
   (``wgmma``) instructions in the flash library's SASS and read ptxas'
   registers and spills of each of its TMA kernel's 8 instantiations
-  (all must be read, none may spill);
+  (all must be read, none may spill); count the tensor-core (``HMMA``)
+  instructions in the mlstm library's SASS, whose kernels may not spill
+  either;
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
   ``torch.equal`` with its plain version, then timed with CUDA events
-  beside its bound, its plain version and a one-call PyTorch yardstick;
+  beside its bound, its plain version and a one-call PyTorch yardstick
+  (``decode_rows`` also on a receive block with a row stride of 256 B,
+  and in device time beside ``clone``'s);
 * phase 2: three relocation windows over ``PlaceGroup(8)``: ``pts``
   (2^23 x 32 float32, all on place 0), ``ids`` (2^22 x 16 int64, block
   distributed), ``kv`` (4096 keys of ``{"k": page, "v": page, "pos"}``
@@ -31,9 +35,9 @@ each hand-written kernel against its plain PyTorch version:
   and not, windows shorter than a key tile and longer than several, a
   softcap, ragged lengths, ``Sq = 1``, fully masked rows, the models'
   transposed (B, S, H, D) views, rows whose stride is no 16-byte
-  multiple, recurrentgemma-2b's local attention (head dim 256, group
-  10, causal window 2048) and deepseek-v2-lite's MLA (head dim 192, 16
-  heads), in float32 (within 1e-4), bfloat16 and float16 (within 2e-2
+  multiple, windows 0, -3 and -Skv - 1 (causal or not),
+  recurrentgemma-2b's local attention (head dim 256, group 10, causal
+  window 2048) and deepseek-v2-lite's MLA (head dim 192, 16 heads), in float32 (within 1e-4), bfloat16 and float16 (within 2e-2
   absolute and relative, and within 1e-4 plus 1e-2 (bf16) or 2e-3
   (f16) of ``|flash_ref|``: one ulp of the output), with bfloat16 also
   held against ``flash_ref`` on float32 copies of its inputs (within
@@ -59,11 +63,14 @@ each hand-written kernel against its plain PyTorch version:
 * phase 7: ``rg_lru`` and ``mlstm_chunkwise`` against their plain
   versions (``rg_lru_ref``, ``mlstm_ref``) at the recurrent models'
   prefill shapes — x, a (4, 4096, 2560); q, k, v (16, 2048, 512) — and
-  over a sweep (ragged S and D, an ``h0``, S shorter than the chunk,
-  head dims 16 / 64 / 512, strongly negative input gates, forget gates
-  near 1) in float32 and bfloat16, within the tolerances stated at
-  ``rg_lru_close`` and ``mlstm_close``; each timed beside its bound and
-  its plain version;
+  over a sweep (ragged S and D, an ``h0``, S shorter than the chunk and
+  S = 65, head dims 16 / 24 / 64 / 512 / 1024, strongly negative input
+  gates, forget gates near 1) in float32 and bfloat16 (mlstm also
+  float16), within the tolerances stated at ``rg_lru_close`` and
+  ``mlstm_close``, and 16-bit mlstm within half an output ulp + 1e-4
+  max|h| of the f32 recurrence on its own rounded, scaled q and k; each
+  timed beside its bound and its plain version (mlstm in bf16, f16 and
+  on the f32 FMA route);
 * phases 8 and 9: recurrentgemma-2b (26 layers: 18 RG-LRU + 8 local
   attention, d_model 2560; 4 prompts of 4096 tokens, longer than its
   2048 window) and xlstm-350m (24 layers: 21 mLSTM + 3 sLSTM, d_model
@@ -80,7 +87,8 @@ each hand-written kernel against its plain PyTorch version:
   bfloat16, float16; unaligned rows, M = 0, N = 1, repeated indices,
   K = 1 and 8, every slot -1): the gather equal, the combine within
   the tolerance stated at ``combine_close``; each timed beside its byte
-  bound, its plain version and, for the gather, ``index_select``;
+  bound, its plain version and, for the gather, ``index_select``, at
+  both shapes (the decode shape in device time too);
 * phase 12: deepseek-v2-lite-16b (MLA + MoE: 27 layers, d_model 2048,
   64 experts top-6 + 2 shared; random weights from a seed; 4 prompts of
   4096 tokens).  At depth 4 (the dense first layer and 3 MoE layers) in
@@ -186,6 +194,35 @@ def cuda_ms(fn, reps=10, warm=2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20) -> float:
+    """Milliseconds of device time per call of ``fn``: ``reps`` calls
+    captured once in a CUDA graph and the graph replayed (median of 5
+    replays), so no call waits on the host's launch, which a short call
+    is made of under :func:`cuda_ms`.  (``torch.profiler`` would give
+    the same, but its tracing slows every later launch of the run.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -239,6 +276,33 @@ def bytes_equal(a, b) -> bool:
 # ---------------------------------------------------------------------------
 # phase 1: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
+def decode_times(block, W, dt):
+    """decode_rows on one receive block, timed beside its bound, its plain
+    version and ``rows[:, :nbytes].clone()``: per single call (host launch
+    included) and in device time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import reloc_codec as rc
+
+    m = block.shape[0]
+    nbytes = 2 * m * W
+    run = lambda: rc.decode_rows(block, nbytes=W, dtype=dt)  # noqa: E731
+    clone = lambda: block[:, :W].clone()  # noqa: E731
+    out = {"shape": f"rows ({m}, {W}) uint8, row stride {block.stride(0)} "
+                    f"-> ({m}, {W // dt.itemsize}) {str(dt)[6:]}",
+           "ms": cuda_ms(run), "device_ms": device_ms(run),
+           "plain_ms": cuda_ms(lambda: ref.reloc_decode_rows_ref(
+               block, nbytes=W, dtype=dt)),
+           "library_ms": cuda_ms(clone), "library_device_ms":
+               device_ms(clone),
+           "library_call": "rows[:, :nbytes].clone()",
+           "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+    log(f"[decode_rows {out['shape']}] {out['ms']:.4f} ms "
+        f"(device {out['device_ms']:.4f}), clone {out['library_ms']:.4f} "
+        f"(device {out['library_device_ms']:.4f}), bound "
+        f"{out['bound_ms']:.4f}")
+    return out
+
+
 def encode_tables(n, Sp, blocks, m, nb, edge=True):
     """Slot tables of an encode window: ``blocks`` is a list of (src,
     dest, rows) pair blocks filled in order from row 0; plus edge slots
@@ -395,16 +459,21 @@ def phase_kernels(shift, report):
         torch.cuda.synchronize()
         require(bytes_equal(got, want), f"decode_rows {dtype} != plain")
         if dtype == "float32":
-            nbytes = 2 * md * W
-            out["reloc_decode_rows"] = {
-                "shape": f"rows ({md}, {W}) uint8 -> ({md}, 32) float32",
-                "ms": cuda_ms(lambda: rc.decode_rows(block, nbytes=W,
-                                                     dtype=dt)),
-                "plain_ms": cuda_ms(lambda: ref.reloc_decode_rows_ref(
-                    block, nbytes=W, dtype=dt)),
-                "library_ms": cuda_ms(lambda: block[:, :W].clone()),
-                "library_call": "rows[:, :nbytes].clone()",
-                "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+            out["reloc_decode_rows"] = decode_times(block, W, dt)
+    # a strided receive block: 2^20 rows of 128 B, a row stride of 2 x 128
+    del buf, block
+    torch.cuda.empty_cache()
+    buf = torch.randint(0, 256, (md, 2 * W), generator=gen, device=DEV,
+                        dtype=torch.uint8)
+    block = buf[:, W:]
+    for dtype in DTYPES:
+        dt = torch_dtype(dtype)
+        require(bytes_equal(rc.decode_rows(block, nbytes=W, dtype=dt),
+                            ref.reloc_decode_rows_ref(block, nbytes=W,
+                                                      dtype=dt)),
+                f"decode_rows row stride {2 * W} {dtype} != plain")
+    out["reloc_decode_rows"]["strided"] = decode_times(
+        block, W, torch.float32)
     # a row stride wider than the row, odd byte counts
     wide = torch.randint(0, 256, (4101, 256), generator=gen, device=DEV,
                          dtype=torch.uint8)[5:]
@@ -703,6 +772,16 @@ FLASH_SWEEP = [
     (1, 16, 16, 1000, 1000, 192, True, None, 0.0, "bshd"),
     (1, 10, 1, 1000, 1000, 256, True, 300, 0.0, "bshd"),
     (1, 8, 8, 300, 300, 128, True, None, 0.0, "pad"),
+    # windows <= 0 keep keys j > i - window: after the row (non-causal;
+    # each head's last row keeps none) or none (causal), the TMA path
+    # (16-bit, aligned) and the FMA path (float32, "pad")
+    (1, 8, 2, 300, 300, 128, False, 0, 0.0),
+    (1, 8, 2, 300, 300, 64, True, 0, 0.0),
+    (1, 8, 2, 200, 260, 192, False, -3, 0.0),
+    (1, 8, 2, 300, 300, 256, True, -3, 0.0),
+    (1, 8, 2, 300, 300, 128, False, -301, 0.0),       # -Skv - 1
+    (1, 8, 2, 300, 300, 128, False, 0, 0.0, "pad"),
+    (1, 8, 2, 300, 300, 128, True, -3, 0.0, "pad"),
 ]
 FLASH_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2),
              "float16": (2e-2, 2e-2)}
@@ -885,10 +964,18 @@ MLSTM_SHAPE = (16, 2048, 512)           # xlstm-350m's: (B*H, S, d)
 # (B, S, D, with h0)
 RG_LRU_SWEEP = [(3, 1000, 1000, True), (1, 17, 33, False),
                 (2, 4096, 2560, True), (1, 1, 2560, True)]
-# (BH, S, d, i offset, f offset)
+# (BH, S, d, i offset, f offset): S < 64, S = 65, head dims 16 / 64 /
+# 512 / 1024 (the tensor-core route) and 24 (the FMA route in 16 bits)
 MLSTM_SWEEP = [(4, 40, 16, 0.0, 2.0), (2, 1000, 64, 0.0, 2.0),
                (2, 130, 512, 0.0, 2.0), (3, 300, 64, -30.0, 2.0),
-               (3, 300, 64, 0.0, 60.0), (1, 63, 512, -30.0, 60.0)]
+               (3, 300, 64, 0.0, 60.0), (1, 63, 512, -30.0, 60.0),
+               (2, 65, 64, 0.0, 2.0), (1, 130, 1024, 0.0, 2.0),
+               (2, 150, 24, 0.0, 2.0)]
+# bfloat16 / float16 h against the f32 recurrence on the kernel's own
+# rounded, scaled q and k: within half an output ulp plus this share of
+# max|h| (the exact result rounds once; the slack covers f32 summation
+# order)
+MLSTM_CONTRACT_ATOL = 1e-4
 
 
 def rg_lru_inputs(gen, shape, dtype, with_h0=False):
@@ -959,11 +1046,33 @@ def mlstm_close(gate, got, want, dtype, what):
     return err
 
 
+def mlstm_contract_share(h, q, k, v, ig, fg):
+    """The largest share of the contract gate that the 16-bit ``h`` of
+    ``mlstm_chunkwise`` uses: ``|h - h32| / (ulp(h32) / 2 +
+    MLSTM_CONTRACT_ATOL max|h32|)``, h32 the f32 recurrence on f32 copies
+    of the kernel's rounded, scaled q and k."""
+    import torch
+    from repro_torch.kernels import ref
+
+    dt, d = q.dtype, q.shape[-1]
+    s = float(torch.tensor(1.0 / d ** 0.5).to(dt))
+    qs, ks = ((t.float() * s).to(dt).float() for t in (q, k))
+    want, _ = ref.mlstm_ref(qs, ks, v.float(), ig, fg, scale=1.0)
+    mant = 8 if dt == torch.bfloat16 else 11
+    _, e = torch.frexp(want)              # |want| in [2^(e-1), 2^e)
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(-125) - mant - 1))
+    bound = half_ulp + MLSTM_CONTRACT_ATOL * float(want.abs().max())
+    return float(((h.float() - want).abs() / bound).max())
+
+
 def phase_recurrence_kernels(report):
     """rg_lru and mlstm_chunkwise against their plain versions at the
-    main paths' shapes and over a sweep, in float32 and bfloat16; each
+    main paths' shapes and over a sweep, in float32 and bfloat16 (mlstm
+    also in float16, both 16-bit types within the contract gate); each
     timed at its main path's shape and dtype (rg_lru: f32, as
-    ``rglru_block`` feeds it; mlstm: bf16, the compute dtype)."""
+    ``rglru_block`` feeds it; mlstm: bf16, the compute dtype, with f16 and
+    the f32 FMA route beside it)."""
     import torch
     from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import ref
@@ -972,8 +1081,9 @@ def phase_recurrence_kernels(report):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     gate = Gate("recurrence kernels")
     out, sweep = {}, []
-    for dtype in ("float32", "bfloat16"):
-        for case in [RG_LRU_SHAPE + (False,)] + RG_LRU_SWEEP:
+    for dtype in ("float32", "bfloat16", "float16"):
+        for case in ([RG_LRU_SHAPE + (False,)] + RG_LRU_SWEEP
+                     if dtype != "float16" else []):
             x, a, h0 = rg_lru_inputs(gen, case[:3], dtype, case[3])
             got = rl.rg_lru(x, a, h0)
             want = ref.rg_lru_ref(x, a, h0)
@@ -987,16 +1097,25 @@ def phase_recurrence_kernels(report):
             got = ml.mlstm_chunkwise(*ins)
             want = ref.mlstm_ref(*ins)
             torch.cuda.synchronize()
-            sweep.append({"kernel": "mlstm_chunkwise", "case": list(case),
-                          "dtype": dtype, "max_abs_err": mlstm_close(
-                              gate, got, want, dtype, str(case))})
+            row = {"kernel": "mlstm_chunkwise", "case": list(case),
+                   "dtype": dtype, "route": "tensor cores"
+                   if ml.tensor_core_route(*ins[:3]) else "fma",
+                   "max_abs_err": mlstm_close(gate, got, want, dtype,
+                                              str(case))}
+            if dtype != "float32":
+                row["contract_share"] = mlstm_contract_share(got[0], *ins)
+                gate.check(row["contract_share"] <= 1.0,
+                           f"mlstm {case} {dtype}: h beyond half an ulp + "
+                           f"{MLSTM_CONTRACT_ATOL} max|h| of the f32 "
+                           f"recurrence ({row['contract_share']} of it)")
+            sweep.append(row)
             del ins, got, want
     torch.cuda.empty_cache()
     report["recurrence_sweep"] = sweep
     gate.close()
 
-    def worst(kernel, dtype):
-        return max(r["max_abs_err"] for r in sweep
+    def worst(kernel, dtype, key="max_abs_err"):
+        return max(r[key] for r in sweep
                    if r["kernel"] == kernel and r["dtype"] == dtype)
 
     # rg_lru at recurrentgemma's prefill shape, f32
@@ -1017,7 +1136,8 @@ def phase_recurrence_kernels(report):
         "sweep_max_abs_err": {dt: worst("rg_lru", dt)
                               for dt in ("float32", "bfloat16")}}
     del x, a
-    # mlstm_chunkwise at xlstm's prefill shape, bf16
+    # mlstm_chunkwise at xlstm's prefill shape, bf16 (f16 and the f32
+    # FMA route timed beside it)
     BH, S, d = MLSTM_SHAPE
     ins = mlstm_inputs(gen, MLSTM_SHAPE, "bfloat16")
     q = ins[0]
@@ -1025,9 +1145,18 @@ def phase_recurrence_kernels(report):
               + BH * d * d * 4 + BH * d * 4 + BH * 4)     # C, n, m
     flops = ml.mlstm_flops(BH, S, d)
     b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    run = lambda: ml.mlstm_chunkwise(*ins)  # noqa: E731
+    ms = cuda_ms(run)
+    other = {}
+    for dtype in ("float16", "float32"):
+        o = mlstm_inputs(gen, MLSTM_SHAPE, dtype)
+        other[dtype] = cuda_ms(lambda: ml.mlstm_chunkwise(*o))
+        del o
     out["mlstm_chunkwise"] = {
         "shape": f"q, k, v ({BH}, {S}, {d}) bfloat16, gates ({BH}, {S})",
-        "ms": cuda_ms(lambda: ml.mlstm_chunkwise(*ins)),
+        "ms": ms, "device_ms": device_ms(run, reps=5),
+        "tflops": flops / ms / 1e9,
+        "float16_ms": other["float16"], "float32_ms": other["float32"],
         "plain_ms": cuda_ms(lambda: ref.mlstm_ref(*ins), reps=3, warm=1),
         "library_ms": None, "library_call": None,
         "bound_ms": max(b_bytes, b_ops) * 1e3, "bytes": nbytes,
@@ -1035,7 +1164,10 @@ def phase_recurrence_kernels(report):
         else "operations",
         "max_abs_err": worst("mlstm_chunkwise", "bfloat16"),
         "sweep_max_abs_err": {dt: worst("mlstm_chunkwise", dt)
-                              for dt in ("float32", "bfloat16")}}
+                              for dt in ("float32", "bfloat16", "float16")},
+        "sweep_max_contract_share": {
+            dt: worst("mlstm_chunkwise", dt, "contract_share")
+            for dt in ("bfloat16", "float16")}}
     del ins, q
     torch.cuda.empty_cache()
     for name, t in out.items():
@@ -1114,7 +1246,7 @@ def combine_close(gate, got, want, y, slots, w, dtype, what):
 def phase_moe_kernels(report):
     """gather_rows and moe_combine against their plain versions at
     deepseek's prefill and decode shapes and over a sweep, in float32,
-    bfloat16 and float16; each timed at the prefill shape."""
+    bfloat16 and float16; each timed at both shapes."""
     import torch
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ref
@@ -1200,10 +1332,34 @@ def phase_moe_kernels(report):
         dt: max(r["max_abs_err"] for r in sweep if r["dtype"] == dt)
         for dt in ("float32", "bfloat16", "float16")}
     del x, src, y, slots, w
+    # the decode shape (every serving step launches both kernels): per
+    # single call, and in device time, where the launch no longer hides
+    x, src, y, slots, w = moe_tables(gen, MOE_DECODE)
+    T, E, K, D = MOE_DECODE
+    rows_read = int((slots >= 0).sum())
+    nbytes = (int(torch.unique(src).numel()) * D * item + src.nbytes
+              + src.numel() * D * item)
+    run = lambda: md.gather_rows(x, src)  # noqa: E731
+    lib = lambda: torch.index_select(x, 0, src)  # noqa: E731
+    out["gather_rows"]["decode"] = {
+        "shape": f"x ({T + 1}, {D}) bfloat16, idx ({src.numel()},) int32",
+        "ms": cuda_ms(run), "device_ms": device_ms(run),
+        "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib),
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+    nbytes = (rows_read * D * item + T * D * item
+              + slots.nbytes + w.nbytes)
+    run = lambda: md.moe_combine(y, slots, w)  # noqa: E731
+    out["moe_combine"]["decode"] = {
+        "shape": f"y ({y.shape[0]}, {D}) bfloat16, slots and weights "
+                 f"({T}, {K}), {rows_read} slots live",
+        "ms": cuda_ms(run), "device_ms": device_ms(run),
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+    del x, src, y, slots, w
     torch.cuda.empty_cache()
     for name, t in out.items():
         log(f"[{name}] {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} bytes, "
-            f"plain {t['plain_ms']:.3f}, library {t['library_ms']})")
+            f"plain {t['plain_ms']:.3f}, library {t['library_ms']}); "
+            f"decode shape {t['decode']}")
     report["moe_kernels"] = out
     return out
 
@@ -2003,6 +2159,43 @@ def flash_build(build_log, so_path):
     return out
 
 
+def mlstm_build(build_log, so_path):
+    """What phase 0 built for mlstm: ``HMMA`` (``mma.sync``) instructions
+    in the library's SASS, and ptxas' spills for every kernel
+    instantiation, from the compiler's output kept beside the library."""
+    import re
+    from repro_torch.kernels import cuda_build
+
+    sass = subprocess.run(
+        [str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(so_path)], capture_output=True, text=True, timeout=300)
+    hmma = sum("HMMA" in line or "HGMMA" in line
+               for line in sass.stdout.splitlines())
+    spills, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for \S*?\d(mlstm_[a-z]+_kernel)"
+                      r"I(\w+)", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
+        elif cur and "spill stores" in line:
+            spills[cur] = sum(int(x) for x in
+                              re.findall(r"(\d+) bytes spill", line))
+            cur = None
+    out = {"hmma": hmma, "kernels": len(spills),
+           "spill_bytes": {k: v for k, v in spills.items() if v}}
+    log(f"[build] mlstm: {hmma} HMMA/HGMMA in the SASS; {len(spills)} "
+        f"kernels, spills {out['spill_bytes']}")
+    require(hmma > 0, "mlstm: no tensor-core (HMMA/HGMMA) instruction in "
+            "libmlstm.so")
+    kinds = {k.split("<")[0] for k in spills}
+    require(kinds >= {"mlstm_gate_kernel", "mlstm_intra_kernel",
+                      "mlstm_state_kernel", "mlstm_fma_kernel"}
+            and not out["spill_bytes"],
+            f"mlstm: ptxas must report 0 spill bytes for every kernel; the "
+            f"build log gave {spills}")
+    return out
+
+
 def smi_line() -> str:
     try:
         out = subprocess.run(
@@ -2059,6 +2252,8 @@ def main(argv=None) -> int:
         log(f"[build] {path}")
     report["flash_build"] = flash_build(fa.LIBRARY.build_log,
                                         paths[libraries.index(fa.LIBRARY)])
+    report["mlstm_build"] = mlstm_build(ml.LIBRARY.build_log,
+                                        paths[libraries.index(ml.LIBRARY)])
 
     with Phase("kernels", report):
         times = phase_kernels(args.shift, report)
@@ -2140,6 +2335,7 @@ def main(argv=None) -> int:
                 "equal": exact, "within_tol": True,
                 "max_abs_err": 0.0 if exact else t["max_abs_err"],
                 "ms": t["ms"], "kernel_ms": t["ms"],
+                "device_ms": t.get("device_ms"),
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
                 "library_ms": t["library_ms"],
@@ -2154,7 +2350,7 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "qwen2", "serving", "recurrentgemma", "xlstm",
         "recurrentgemma_serving", "deepseek", "deepseek_serving",
-        "flash_d192", "flash_d256", "flash_build")}
+        "flash_d192", "flash_d256", "flash_build", "mlstm_build")}
         | {"launches": launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

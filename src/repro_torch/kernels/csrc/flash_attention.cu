@@ -142,7 +142,7 @@ struct Params {
   long long vsb, vsh, vss;
   float sm_scale;
   int causal;
-  long long window;  // <= 0: none
+  long long window;  // keys j > i - window; no window travels as Sq
   float softcap;     // 0: none
 };
 
@@ -202,12 +202,10 @@ flash_fwd_kernel(const Params p) {
     const long long last = (q0 + kBQ - 1) / kBK + 1;
     k_hi = last < nk ? last : nk;
   }
-  long long k_lo = 0;
-  if (p.window > 0) {
-    // first block with k_start + kBK > q0 - window
-    const long long lo = q0 - p.window - kBK + 1;
-    k_lo = lo > 0 ? (lo + kBK - 1) / kBK : 0;
-  }
+  // first block with k_start + kBK > q0 - window (past k_hi when the
+  // window leaves no key: the rows then give 0)
+  const long long lo = q0 - p.window - kBK + 1;
+  const long long k_lo = lo > 0 ? (lo + kBK - 1) / kBK : 0;
 
   for (long long kb = k_lo; kb < k_hi; ++kb) {
     const long long k0 = kb * kBK;
@@ -249,7 +247,7 @@ flash_fwd_kernel(const Params p) {
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
         bool ok = col < p.Skv;
         if (p.causal) ok = ok && col <= row;
-        if (p.window > 0) ok = ok && col > row - p.window;
+        ok = ok && col > row - p.window;
         keep[c] = ok;
         s[i][c] = ok ? x : kMaskValue;
         mx = fmaxf(mx, s[i][c]);
@@ -567,7 +565,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
       const int col = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
       bool ok = col < p.Skv;
       if (p.causal) ok = ok && col <= row;
-      if (win > 0) ok = ok && col > row - win;
+      ok = ok && col > row - win;
       if (ok) keep[i / 32] |= 1u << (i % 32);
       x = ok ? x : kMaskValue;
     }
@@ -619,17 +617,14 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
   // last q-block first: causal blocks with the most keys start first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTmaBQ;
   const int Skv = static_cast<int>(p.Skv);
-  const int win = p.window > 0 ? static_cast<int>(p.window) : 0;
+  const int win = static_cast<int>(p.window);  // in [-Skv, Sq]
 
   // the k-blocks the visit predicate keeps (flash_attention.py:53-57)
   const int nk = (Skv + BK - 1) / BK;
   int k_hi = nk;
   if (p.causal) k_hi = min(nk, (q0 + kTmaBQ - 1) / BK + 1);
-  int k_lo = 0;
-  if (win > 0) {
-    const int lo = q0 - win - BK + 1;  // first block with k0 + BK > q0 - win
-    k_lo = lo > 0 ? (lo + BK - 1) / BK : 0;
-  }
+  const int lo = q0 - win - BK + 1;  // first block with k0 + BK > q0 - win
+  const int k_lo = lo > 0 ? (lo + BK - 1) / BK : 0;
   const int n = k_hi > k_lo ? k_hi - k_lo : 0;
 
   if (threadIdx.x == 0) {
@@ -731,7 +726,7 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
       // window's edge or Skv evaluate the mask
       const bool full = k0 + BK <= Skv &&
                         (!p.causal || k0 + BK - 1 <= w_lo) &&
-                        (win <= 0 || k0 > w_lo + 63 - win);
+                        k0 > w_lo + 63 - win;
       float alpha[2];
       if (full)
         softmax_tile<BK, false>(sc, m, l, alpha, p, qk_scale, cap_log2, win,
@@ -983,8 +978,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
       B * Hq > 2147483647LL || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the same mask (i - j < Sq always), and a window the kernels hold in int
+  // the same mask, in a range the kernels hold in int: i - j < Sq always,
+  // so a window >= Sq keeps every key (no window is passed as Sq), and
+  // j > i + Skv never holds, so a window <= -Skv keeps none
   if (window > Sq) window = Sq;
+  if (window < -Skv) window = -Skv;
   Params p{q, k, v, out, B, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
            vsb, vsh, vss, sm_scale, causal, window, softcap};
   const auto st = static_cast<cudaStream_t>(stream);

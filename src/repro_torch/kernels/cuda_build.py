@@ -20,10 +20,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 from typing import Callable
 
 __all__ = ["CudaLibrary", "build_all", "launch_counts",
-           "reset_launch_counts", "counted"]
+           "reset_launch_counts", "counted", "cuda_stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
@@ -42,6 +44,14 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for name in launch_counts:
             launch_counts[name] = 0
+
+
+def cuda_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, as an int, read
+    without building a ``torch.cuda.Stream`` object at every launch."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def counted(name: str) -> None:

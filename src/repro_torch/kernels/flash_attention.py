@@ -10,7 +10,8 @@ raises; given CPU tensors it computes the plain version
 Each launch adds one to ``launch_counts["flash_attention"]``.
 
 Supports GQA (``Hq % Hkv == 0``), causal masking (top-left), a sliding
-window (keys in ``(i - window, i]``), logit soft-capping and
+window (keys ``j > i - window``, for any integer window: one <= 0 keeps
+only keys after the row, or none), logit soft-capping and
 ``sm_scale``; head dims 64, 128, 192 (MLA's 128 + 64 query/key head)
 and 256; float32, bfloat16 and float16.  Views with a unit last stride
 are read in place.  The kernel picks its path from dtype, head dim and
@@ -34,7 +35,7 @@ import math
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted
+from .cuda_build import CudaLibrary, counted, cuda_stream
 
 __all__ = ["flash_attention", "KERNELS", "LIBRARY", "SOURCE",
            "attention_flops"]
@@ -66,7 +67,8 @@ def attention_flops(B: int, Hq: int, Sq: int, Skv: int, D: int, *,
     i = torch.arange(Sq, dtype=torch.int64)
     hi = torch.minimum(i + 1, torch.tensor(Skv)) if causal \
         else torch.full_like(i, Skv)
-    lo = (i - window + 1).clamp(min=0) if window else torch.zeros_like(i)
+    lo = (i - window + 1).clamp(min=0) if window is not None \
+        else torch.zeros_like(i)
     pairs = int((hi - lo).clamp(min=0).sum())
     return 4 * B * Hq * D * pairs
 
@@ -106,8 +108,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
         return out
-    if Skv == 0 or (window is not None and window <= 0):
-        return out.zero_()           # every key masked: rows give 0
+    if Skv == 0:
+        return out.zero_()           # no key: rows give 0
+    # keys j > i - window for every integer window; i - j < Sq, so no
+    # window is the window Sq, and a window <= -Skv keeps no key
+    win = Sq if window is None else max(min(int(window), Sq), -Skv)
     rc = LIBRARY.lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[q.dtype], B, Hq, Hkv, Sq, Skv, D,
@@ -115,8 +120,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         float(sm_scale), int(bool(causal)),
-        int(window) if window is not None else 0, float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        win, float(softcap or 0.0),
+        cuda_stream(q.device))
     if rc < 0:
         raise RuntimeError("flash_attention: a TMA tensor map failed to "
                            f"encode (CUresult {-rc})")

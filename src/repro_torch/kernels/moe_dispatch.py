@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted
+from .cuda_build import CudaLibrary, counted, cuda_stream
 
 __all__ = ["gather_rows", "moe_combine", "KERNELS", "LIBRARY", "SOURCE"]
 
@@ -43,10 +43,6 @@ def _bind(lib) -> None:
 
 LIBRARY = CudaLibrary("moe_dispatch.cu", "moe_dispatch", _bind, KERNELS)
 SOURCE = LIBRARY.source
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_cuda(name: str, *tensors) -> None:
@@ -81,7 +77,7 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows from an empty x")
     rc = LIBRARY.lib().moe_gather_rows(
         x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.element_size(), M,
-        D, _stream(x))
+        D, cuda_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: CUDA error {rc}")
     counted("gather_rows")
@@ -119,7 +115,7 @@ def moe_combine(y: torch.Tensor, slots: torch.Tensor,
         return out
     rc = LIBRARY.lib().moe_combine(
         y.data_ptr(), slots.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[y.dtype], Tn, K, D, _stream(y))
+        _DTYPE_CODE[y.dtype], Tn, K, D, cuda_stream(y.device))
     if rc != 0:
         raise RuntimeError(f"moe_combine launch failed: CUDA error {rc}")
     counted("moe_combine")

@@ -139,7 +139,8 @@ def rg_lru_ref(x, a, h0=None):
     return hs.to(x.dtype), h
 
 
-def mlstm_ref(q, k, v, i_gate, f_gate, c0=None, n0=None, m0=None):
+def mlstm_ref(q, k, v, i_gate, f_gate, c0=None, n0=None, m0=None, *,
+              scale=None):
     """Stabilized mLSTM recurrence (xLSTM eqs.), one step at a time:
 
       m_t = max(log σ(f_t) + m_{t-1}, i_t)
@@ -147,13 +148,18 @@ def mlstm_ref(q, k, v, i_gate, f_gate, c0=None, n0=None, m0=None):
       n_t = (same decays) n_{t-1} + exp(i_t - m_t) k_t
       h_t = (C_tᵀ q_t) / max(|n_t · q_t|, 1)
 
-    q, k, v: (B, S, d), scaled by ``1/sqrt(d)`` here in f32; i_gate,
+    q, k, v: (B, S, d), scaled here in f32 by ``1/sqrt(d)`` or, given,
+    by ``scale`` (``scale=1.0`` takes q and k as already scaled); i_gate,
     f_gate: (B, S) pre-activations.  Returns (h (B, S, d) in ``q.dtype``,
     (C (B, d, d), n (B, d), m (B,)) in f32)."""
     B, S, d = q.shape
     dev = q.device
-    qf = q.float() / math.sqrt(d)
-    kf = k.float() / math.sqrt(d)
+    if scale is None:
+        qf = q.float() / math.sqrt(d)
+        kf = k.float() / math.sqrt(d)
+    else:
+        qf = q.float() * scale
+        kf = k.float() * scale
     vf = v.float()
     ig = i_gate.float()
     fg = f_gate.float()

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from . import ref
-from .cuda_build import (CudaLibrary, counted, launch_counts,
+from .cuda_build import (CudaLibrary, counted, cuda_stream, launch_counts,
                          reset_launch_counts)
 
 __all__ = ["encode_pack", "pack_rows", "decode_rows",
@@ -86,10 +86,6 @@ def _table(x, dtype, n: int, device, name: str) -> torch.Tensor:
     return t
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # the three wrappers
 # ---------------------------------------------------------------------------
@@ -121,7 +117,7 @@ def encode_pack(mat, idx, widths, *, pairs: int, slots: int,
     if n * width:
         rc = LIBRARY.lib().reloc_encode_pack(
             mat.data_ptr(), idx.data_ptr(), widths.data_ptr(),
-            out.data_ptr(), n, m, nb, width, _stream(mat.device))
+            out.data_ptr(), n, m, nb, width, cuda_stream(mat.device))
         _check(rc, "reloc_encode_pack")
         counted("reloc_encode_pack")
     return out
@@ -155,7 +151,7 @@ def pack_rows(flat_src, offsets, widths, *, pairs: int, slots: int,
         rc = LIBRARY.lib().reloc_pack_rows(
             flat_src.data_ptr(), offsets.data_ptr(), widths.data_ptr(),
             out.data_ptr(), n, int(flat_src.shape[0]), width,
-            _stream(flat_src.device))
+            cuda_stream(flat_src.device))
         _check(rc, "reloc_pack_rows")
         counted("reloc_pack_rows")
     return out
@@ -181,11 +177,12 @@ def decode_rows(rows, *, nbytes: int, dtype: torch.dtype) -> torch.Tensor:
             or (m > 1 and rows.stride(0) < nbytes):
         raise ValueError(f"decode_rows needs unit byte stride, got strides "
                          f"{rows.stride()}")
-    out = torch.empty((m, nbytes // isz), dtype=dtype, device=rows.device)
+    dev = rows.device
+    out = torch.empty((m, nbytes // isz), dtype=dtype, device=dev)
     if m * nbytes:
         rc = LIBRARY.lib().reloc_decode_rows(
             rows.data_ptr(), out.data_ptr(), m, rows.stride(0), nbytes,
-            _stream(rows.device))
+            cuda_stream(dev))
         _check(rc, "reloc_decode_rows")
         counted("reloc_decode_rows")
     return out

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted
+from .cuda_build import CudaLibrary, counted, cuda_stream
 
 __all__ = ["rg_lru", "KERNELS", "LIBRARY", "SOURCE"]
 
@@ -75,7 +75,7 @@ def rg_lru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     rc = LIBRARY.lib().rg_lru_fwd(
         x.data_ptr(), a.data_ptr(), h0.data_ptr() if h0 is not None else None,
         out.data_ptr(), h_last.data_ptr(), _DTYPE_CODE[x.dtype], B, S, D,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"rg_lru launch failed: CUDA error {rc}")
     counted("rg_lru")

@@ -148,6 +148,10 @@ FLOPS_CASES = [
     (1, 1, 1, 33, 32, True, None),       # Sq = 1
     (2, 10, 300, 300, 256, True, 128),   # recurrentgemma-like: group 10,
     (1, 10, 257, 257, 256, True, 300),   # window < Sq and window > Sq
+    (1, 2, 40, 40, 16, False, 0),        # window 0: keys after the row
+    (1, 2, 40, 50, 16, False, -3),       # window < 0
+    (1, 2, 40, 40, 16, True, 0),         # causal, window <= 0: no key
+    (1, 2, 40, 40, 16, True, -3),
 ]
 
 
@@ -159,6 +163,36 @@ def test_attention_flops_matches_a_brute_force_mask_count(case):
                and (window is None or j > i - window))
     assert fa.attention_flops(B, Hq, Sq, Skv, D, causal=causal,
                               window=window) == 4 * B * Hq * D * kept
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window): a window <= 0 keeps keys
+# j > i - window, after the row (non-causal) or none (causal)
+NONPOS_WINDOW_CASES = [
+    (1, 4, 2, 64, 64, 16, False, 0),     # each head's last row: no key
+    (1, 4, 2, 64, 64, 16, False, -3),
+    (2, 2, 1, 30, 45, 32, False, 0),     # Skv > Sq
+    (1, 4, 2, 64, 64, 16, True, 0),      # causal: every row gives 0
+    (1, 4, 2, 64, 64, 16, True, -3),
+]
+
+
+@pytest.mark.parametrize("case", NONPOS_WINDOW_CASES, ids=str)
+def test_flash_attention_window_nonpositive_matches_jax(case):
+    """CPU tensors through ``flash_attention`` at windows 0 and -3 against
+    the JAX package's dense ``attention_ref`` (f32, within 1e-5): the
+    window is a mask like any other, not "no keys"."""
+    q, k, v = _inputs(case, "float32", seed=11)
+    causal, window = case[6:8]
+    got = fa.flash_attention(_torch(q), _torch(k), _torch(v),
+                             causal=causal, window=window)
+    want = np.asarray(jref.attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    Sq, Skv = case[3], case[4]
+    live = [i for i in range(Sq) if not causal and i - window < Skv - 1]
+    assert bool(np.abs(want[:, :, live]).max(axis=-1).all()) \
+        if live else not np.abs(want).max()
 
 
 def _emulate_tensor_core_path(q, k, v, *, causal, window, block_k, split):

@@ -159,6 +159,14 @@ FLASH_CASES = [
     # rows D + 4 elements apart: no 16-byte multiple in bf16/f16
     (1, 4, 2, 150, 150, 128, True, None, 0.0, "pad"),
     (1, 4, 4, 90, 90, 256, True, 32, 0.0, "pad"),
+    # windows <= 0 keep keys j > i - window: after the row (non-causal;
+    # each head's last row keeps none) or none at all (causal)
+    (1, 4, 2, 64, 64, 64, False, 0, 0.0),
+    (1, 4, 2, 200, 300, 128, False, -3, 0.0),
+    (1, 4, 2, 150, 150, 256, True, 0, 0.0),
+    (1, 4, 2, 150, 150, 128, True, -3, 0.0),
+    (1, 4, 2, 150, 150, 192, False, -151, 0.0),
+    (1, 4, 2, 130, 130, 128, False, 0, 0.0, "pad"),
 ]
 
 
@@ -344,14 +352,15 @@ def _mlstm_inputs(case, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", MLSTM_CASES, ids=str)
 def test_mlstm_kernel_matches_plain_version_on_card(case, dtype):
     """float32: h within 5e-4 of max|h|, C within 1e-3, m within 1e-4
     (the JAX package's own chunkwise-vs-sequential tolerance).
-    bfloat16: the kernel scales q and k in bfloat16 as the Pallas wrapper
-    does, the plain version in f32 — one rounding of each (2^-9), so h
-    within 1e-2 of max|h| and C, n within 1e-2 of their largest."""
+    bfloat16 / float16: the kernel scales q and k in the input type as
+    the Pallas wrapper does, the plain version in f32 — one rounding of
+    each (2^-9 in bfloat16), so h within 1e-2 of max|h| and C, n within
+    1e-2 of their largest."""
     _need_card()
     from repro_torch.kernels import mlstm as ml
 
@@ -377,6 +386,95 @@ def test_mlstm_kernel_matches_plain_version_on_card(case, dtype):
             top = float(want.abs().max()) + 1e-9
             assert float((got - want).abs().max()) / top < 1e-2
         torch.testing.assert_close(m, mr, atol=1e-3, rtol=1e-3)
+
+
+def _mlstm_gate_share(h, q, k, v, ig, fg):
+    """The largest share of the contract gate that the 16-bit ``h`` uses:
+    within half an output ulp plus 1e-4 max|h| of the f32 recurrence on
+    f32 copies of the kernel's own rounded, scaled q and k."""
+    dt, d = q.dtype, q.shape[-1]
+    s = float(torch.tensor(1.0 / d ** 0.5).to(dt))
+    qs, ks = ((t.float() * s).to(dt).float() for t in (q, k))
+    want, _ = ref.mlstm_ref(qs, ks, v.float(), ig, fg, scale=1.0)
+    mant = 8 if dt == torch.bfloat16 else 11
+    _, e = torch.frexp(want)
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(-125) - mant - 1))
+    bound = half_ulp + 1e-4 * float(want.abs().max())
+    return float(((h.float() - want).abs() / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", MLSTM_CASES + [
+    (1, 65, 64, (0.0, 2.0)), (1, 70, 1024, (0.0, 2.0)),
+    (2, 300, 80, (-30.0, 60.0))], ids=str)
+def test_mlstm_tensor_core_route_meets_the_contract_gate(case, dtype):
+    """The tensor-core route (16-bit, d % 16 == 0): h within half an
+    output ulp plus 1e-4 max|h| of the f32 recurrence on the kernel's
+    own rounded, scaled q and k — what the hi + lo pairs of C, W and
+    k * u buy."""
+    _need_card()
+    from repro_torch.kernels import mlstm as ml
+
+    q, k, v, ig, fg = _mlstm_inputs(case, dtype, seed=len(str(case)) + 1)
+    assert ml.tensor_core_route(q, k, v)
+    BH, S, d = case[:3]
+    assert ml.scratch_floats(BH, S, d) \
+        == ml.LIBRARY.lib().mlstm_tc_scratch_floats(BH, S, d)
+    h, _ = ml.mlstm_chunkwise(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    assert _mlstm_gate_share(h, q, k, v, ig, fg) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["d=24", "d=8", "unaligned", "float32"])
+def test_mlstm_fma_route_cases(what):
+    """Each case the wrapper's rule sends to the FMA kernel: a head dim
+    that is no multiple of 16, q, k, v off a 16-byte boundary, float32;
+    the 16-bit ones within the contract gate too."""
+    _need_card()
+    from repro_torch.kernels import mlstm as ml
+
+    d = {"d=24": 24, "d=8": 8}.get(what, 64)
+    dtype = "float32" if what == "float32" else "bfloat16"
+    q, k, v, ig, fg = _mlstm_inputs((2, 150, d, (0.0, 2.0)), dtype, seed=9)
+    if what == "unaligned":
+        q, k, v = (torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:]
+                   .view(t.shape) for t in (q, k, v))
+    assert not ml.tensor_core_route(q, k, v)
+    h, (C, n, m) = ml.mlstm_chunkwise(q, k, v, ig, fg)
+    hr, (Cr, nr, mr) = ref.mlstm_ref(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    top = float(hr.float().abs().max())
+    if dtype == "float32":
+        assert float((h - hr).abs().max()) / top < 5e-4
+        torch.testing.assert_close(C, Cr, atol=1e-3, rtol=1e-3)
+    else:
+        assert _mlstm_gate_share(h, q, k, v, ig, fg) <= 1.0
+    torch.testing.assert_close(m, mr, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "wide rows"])
+def test_decode_rows_streaming_copy_on_card(layout):
+    """decode_rows bit-equal to its plain version on the flat path (a
+    contiguous block), the strided path (row stride 2 x 128 B, a ragged
+    last tile) and rows wider than one tile of 32 KiB."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    m, W, stride = {"contiguous": (100_003, 128, 128),
+                    "strided": (70_001, 128, 256),
+                    "wide rows": (5, 49_152, 49_152 + 64)}[layout]
+    buf = torch.randint(0, 256, (m, stride), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    block = buf[:, :W] if stride != W else buf
+    for dt in (torch.float32, torch.bfloat16, torch.uint8, torch.float64):
+        got = rc.decode_rows(block, nbytes=W, dtype=dt)
+        want = ref.reloc_decode_rows_ref(block, nbytes=W, dtype=dt)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(
+            got.view(torch.uint8), want.view(torch.uint8))
 
 
 @pytest.mark.cuda
