@@ -105,11 +105,42 @@ each hand-written kernel against its plain PyTorch version:
 * phase 13: phase 6's serving runtime over deepseek-v2-lite-16b (16
   rounds): each ``SeqKV`` holds 27 latent caches (1024 x (512 + 64)
   bfloat16 and positions), and every decode step launches both MoE
-  kernels.
+  kernels;
+* phase 14: the paper's workloads.  K-Means: 8 places, 2^24 points
+  (rows of 4 f64), k 16, 10 iterations, the GLB relocating every 2
+  iterations through the device transport toward a 3x place (the run
+  fails unless ``encode_pack`` and ``decode_rows`` launched); inertia
+  below 0.8x its start, centroids equal a 1-place run's within 1e-9,
+  and at 2^16 points the card equals the port's CPU run (assignments
+  equal, centroids within 1e-9).  MolDyn: Java Grande size B (8 788
+  particles, 38.6 M pairs a step), 4 places, ``ndivide`` 5, 10 steps;
+  replicas in sync, positions equal a 1-place run's and a GLB run's
+  (speeds 1, 1, 1, 2) within rtol 1e-10; at size A (2 048) 3 steps on
+  the card equal the port's CPU run (rtol 1e-10, equal allreduce
+  bytes).  PlhamJ: the nine configurations of ``benchmarks/run.py``
+  (evenA, unevenC, disturbA x none, level_extremes, proportional; 800
+  agents, 100 rounds), each equal to the port's CPU run (load history
+  and relocated bytes exactly, simulated time within rtol 1e-12),
+  unevenC/level_extremes gaining >= 5 % and evenA/level_extremes
+  within 5 %; then unevenC/level_extremes at 65 536 agents for 20
+  rounds, with the share of its wall time spent in the per-trade
+  dispatch;
+* phases 15-17: phi4-mini-3.8b (32 layers, 4 x 4096), gemma3-12b (48
+  layers, 5 local of window 1024 : 1 global, 4 x 4096) and gemma2-27b
+  (46 layers, local window 4096 / global, softcaps; 2 x 8192, ``s_cache``
+  8256) at published widths through phase 5's checks, the f32 gate and
+  the bf16 gate run at the largest depth whose f32 weights and their
+  bf16 cast take at most half the card (``gate_depth``); below full
+  depth, the bf16 main path then runs at full depth with parameters
+  drawn in bf16 (finite results, layer 1's key cache fused vs
+  composite within 1e-2 in relative L2); the fused prefill launches
+  ``flash_attention`` 32, 48 and 46 times.
 
 The launch counts are set to 0 just before each main path (phases 2-3,
-5, 6, 8, 9, 10, 12 and 13) and read just after; a path that launched
-none of its kernels fails.  Every check raises on failure (a phase logs all its
+5, 6, 8, 9, 10, 12, 13, each app of phase 14, and 15-17) and read just
+after; a path that launched none of its kernels fails (MolDyn and
+PlhamJ have no hand-written kernel on their path: their counts are
+recorded, all 0).  Every check raises on failure (a phase logs all its
 comparisons first).  The output ends with each
 phase's wall time and peak memory, the card's name and power limit, a
 ``kernels`` JSON line and, as the last line, ``{"ok": true, "device":
@@ -172,6 +203,29 @@ class Phase:
             log(f"[phase] {self.name} done in {rec['wall_s']:.2f} s, peak "
                 f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB")
         return False
+
+
+# device bytes an earlier phase may leave to the garbage collector
+CYCLE_BYTES = 1 << 28
+
+
+def free_memory(where, report):
+    """Collect garbage and return the allocator's cached blocks.  The
+    device memory that only the collection frees was held by an earlier
+    phase's objects in a reference cycle: it is recorded in
+    ``report["cycle_bytes"]``, and more than ``CYCLE_BYTES`` fails."""
+    import gc
+
+    import torch
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    report.setdefault("cycle_bytes", {})[where] = freed
+    log(f"[memory] before {where}: {freed} B freed only by gc, "
+        f"{torch.cuda.memory_allocated()} B still allocated")
+    require(freed <= CYCLE_BYTES, f"before {where}: {freed} B of device "
+            "memory held in reference cycles")
 
 
 def cuda_ms(fn, reps=10, warm=2) -> float:
@@ -1374,6 +1428,9 @@ BF16_TOL = 3e-2         # tests/test_arch_smoke.py's bf16 tolerance
 # in bf16 the fused path's distance to the f32 run may exceed the plain
 # path's by this factor at most
 BF16_MARGIN = 1.25
+# share of the card's memory the f32 gate's weights and their bf16 cast
+# may take (``gate_depth``)
+F32_FIT = 0.5
 
 
 def _slot(i, name, layer=None):
@@ -1423,6 +1480,49 @@ LM = {
         "bf16": ("mlstm_C_layer0",),
         "exact": (),
     },
+    # phases 15-17, the dense configs at their published widths (the
+    # reference's configs; ROADMAP.md section 3 lists where they depart
+    # from the published models).  arXiv:2503.01743 (phi-4-mini): 32
+    # layers, d_model 3072, 24 / 8 heads of 128, d_ff 8192, vocab 200064
+    "phi4": {
+        "config": "phi4_mini_3_8b",
+        "widths": (32, 3072, 24, 8, 128, 8192, 200192),
+        "batch": 4, "prompt": 4096, "s_cache": 4160,
+        "launches": {"flash_attention": 32},
+        "leaves": {"cache_k": _slot(0, "k"), "cache_v": _slot(0, "v")},
+        "bf16": ("cache_k", "cache_v"),
+        "exact": (_slot(0, "pos"),),
+        "layer1": _slot(0, "k", 1),
+    },
+    # Gemma 3 12B (Hugging Face google/gemma-3-12b-pt config): 48 layers,
+    # 5 local (window 1024) : 1 global, d_model 3840, 16 / 8 heads of
+    # 256, d_ff 15360, vocab 262144, QK norm
+    "gemma3": {
+        "config": "gemma3_12b",
+        "widths": (48, 3840, 16, 8, 256, 15360, 262144),
+        "batch": 4, "prompt": 4096, "s_cache": 4160,
+        "launches": {"flash_attention": 48},
+        "leaves": {"local_k": _slot(0, "k"), "local_v": _slot(0, "v"),
+                   "global_k": _slot(5, "k"), "global_v": _slot(5, "v")},
+        "bf16": ("local_k", "global_k"),
+        "exact": (_slot(0, "pos"), _slot(5, "pos")),
+        "layer1": _slot(1, "k", 0),
+    },
+    # arXiv:2408.00118 (Gemma 2 27B): 46 layers alternating local
+    # (window 4096) and global, d_model 4608, 32 / 16 heads of 128, d_ff
+    # 36864, vocab 256000, attention softcap 50, final softcap 30; two
+    # prompts of 8192 so the local window masks
+    "gemma2": {
+        "config": "gemma2_27b",
+        "widths": (46, 4608, 32, 16, 128, 36864, 256000),
+        "batch": 2, "prompt": 8192, "s_cache": 8256,
+        "launches": {"flash_attention": 46},
+        "leaves": {"local_k": _slot(0, "k"), "local_v": _slot(0, "v"),
+                   "global_k": _slot(1, "k"), "global_v": _slot(1, "v")},
+        "bf16": ("local_k", "global_k"),
+        "exact": (_slot(0, "pos"), _slot(1, "pos")),
+        "layer1": _slot(1, "k", 0),
+    },
     # arXiv:2405.04434 and DeepSeek-V2-Lite's config.json (Hugging Face):
     # 27 layers, d_model 2048, 16 heads, d_ff 10944, vocab 102400; MoE
     # (64 routed experts top-6, 2 shared, d_ff 1408, first layer dense);
@@ -1434,6 +1534,7 @@ LM = {
         "batch": 4, "prompt": 4096, "s_cache": 4160,
         "launches": {"flash_attention": 27, "gather_rows": 26,
                      "moe_combine": 26},
+        "layer1": _slot(0, "ckv", 0),
     },
 }
 
@@ -1556,12 +1657,32 @@ def decode(cfg, params, st, follow, impl=None):
     return torch.stack(logits), statistics.median(times)
 
 
+def gate_depth(cfg):
+    """The full depth if the model's f32 weights and their bf16 cast (6
+    bytes a parameter) take at most ``F32_FIT`` of the card's memory
+    (the rest holds both paths' states and the prefill's activations),
+    else the largest depth in whole pattern periods that does."""
+    import dataclasses
+
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = lambda d: 6 * dataclasses.replace(  # noqa: E731
+        cfg, n_layers=d).param_counts()["total"] <= F32_FIT * total
+    if fits(cfg.n_layers):
+        return cfg.n_layers
+    period = len(cfg.pattern)
+    depths = [d for d in range(period, cfg.n_layers, period) if fits(d)]
+    return max(depths, default=min(period, cfg.n_layers))
+
+
 def phase_lm(key, report, main_launches):
     """f32 compute first: fused vs composite within 1e-3 (a kernel fault
     shows there), and the composite run is the reference of the bf16
-    runs.  Then the bf16 main path: the fused prefill (counted), the
-    composite one, and 32 decode steps from each state, teacher-forced
-    with the f32 fused run's greedy tokens."""
+    runs.  Then bf16: the fused prefill, the composite one, and 32
+    decode steps from each state, teacher-forced with the f32 fused
+    run's greedy tokens.  Both run at ``gate_depth``; where that is the
+    full depth the bf16 run is the main path (counted), else the main
+    path runs at full depth in :func:`lm_full_depth`."""
     import dataclasses
 
     import torch
@@ -1571,17 +1692,21 @@ def phase_lm(key, report, main_launches):
 
     spec = LM[key]
     cfg = lm_config(key)
+    depth = gate_depth(cfg)
+    full = depth == cfg.n_layers
+    cfg_g = cfg if full else dataclasses.replace(cfg, n_layers=depth)
     B, S, s_cache = spec["batch"], spec["prompt"], spec["s_cache"]
     leaves = spec["leaves"]
     gate = Gate(key)
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    master, params = lm_params(cfg)
+    c32 = dataclasses.replace(cfg_g, dtype="float32")
+    master, params = lm_params(cfg_g)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=DEV, dtype=torch.int32)
     out = {"config": cfg.name, "batch": B, "prompt": S, "s_cache": s_cache,
-           "decode_steps": DECODE_STEPS}
+           "decode_steps": DECODE_STEPS, "gate_depth": depth}
     times = {}
+    log(f"[{key}] f32 gate at depth {depth} of {cfg.n_layers}")
 
     # f32: kernel vs plain version, and the reference of the bf16 runs
     t0 = time.perf_counter()
@@ -1612,12 +1737,16 @@ def phase_lm(key, report, main_launches):
     del st_f, st_c, lg_f, dl_f, master
     torch.cuda.empty_cache()
 
-    # bf16: the main path, counted from zero
+    # bf16 at the gate depth: the main path (counted from zero) when
+    # that is the full depth
     t0 = time.perf_counter()
-    cuda_build.reset_launch_counts()
-    st_f, lg_f, wall = prefill(cfg, params, tokens, "fused", s_cache)
-    main_launches.update(cuda_build.launch_counts)
-    st_c, lg_c, wall_c = prefill(cfg, params, tokens, "composite", s_cache)
+    if full:
+        cuda_build.reset_launch_counts()
+    st_f, lg_f, wall = prefill(cfg_g, params, tokens, "fused", s_cache)
+    if full:
+        main_launches.update(cuda_build.launch_counts)
+    st_c, lg_c, wall_c = prefill(cfg_g, params, tokens, "composite",
+                                 s_cache)
     e16 = {"prefill_logits": bf16_close(gate, lg_f, lg_c,
                                         truth["prefill_logits"],
                                         "prefill logits")}
@@ -1627,16 +1756,24 @@ def phase_lm(key, report, main_launches):
     for get in spec["exact"]:
         gate.check(torch.equal(get(st_f), get(st_c)), "cache positions")
     gate.check(torch.equal(st_f["pos"], st_c["pos"]), "state positions")
-    dl_f, ms = decode(cfg, params, st_f, follow)
-    dl_c, _ = decode(cfg, params, st_c, follow)
+    dl_f, ms = decode(cfg_g, params, st_f, follow)
+    dl_c, _ = decode(cfg_g, params, st_c, follow)
     e16["decode_logits"] = bf16_close(gate, dl_f, dl_c,
                                       truth["decode_logits"],
                                       "decode logits")
-    out["bfloat16"] = {"errors": e16, "prefill_s": wall,
-                       "composite_prefill_s": wall_c,
-                       "prefill_tokens_per_s": B * S / wall,
-                       "decode_ms_per_step": ms}
-    times["bfloat16_s"] = time.perf_counter() - t0
+    out["bfloat16" if full else "bfloat16_gate"] = {
+        "errors": e16, "prefill_s": wall, "composite_prefill_s": wall_c,
+        "prefill_tokens_per_s": B * S / wall, "decode_ms_per_step": ms}
+    times["bfloat16_s" if full else "bfloat16_gate_s"] = \
+        time.perf_counter() - t0
+    log(f"[{key}] errors f32 {e32}, bf16 {e16}")
+    del st_f, st_c, lg_f, lg_c, dl_f, dl_c, truth, params
+    torch.cuda.empty_cache()
+    if not full:
+        t0 = time.perf_counter()
+        out["bfloat16"] = lm_full_depth(key, cfg, tokens, follow, gate,
+                                        main_launches)
+        times["bfloat16_s"] = time.perf_counter() - t0
     out["times"] = times
     for dt in ("float32", "bfloat16"):
         r = out[dt]
@@ -1644,15 +1781,89 @@ def phase_lm(key, report, main_launches):
             f"({r['prefill_tokens_per_s']:.0f} tok/s; composite "
             f"{r['composite_prefill_s']:.3f} s), decode "
             f"{r['decode_ms_per_step']:.2f} ms/step")
-    log(f"[{key}] errors f32 {e32}, bf16 {e16}")
     for name, n in spec["launches"].items():
         gate.check(main_launches.get(name) == n,
                    f"fused prefill launched {name} "
                    f"{main_launches.get(name)} times, not {n}")
     report[key] = out
-    del st_f, st_c, params
-    torch.cuda.empty_cache()
     gate.close()
+
+
+def lm_full_depth(key, cfg, tokens, follow, gate, main_launches,
+                  extra=None):
+    """The bf16 main path at full depth, parameters drawn in the compute
+    dtype (no f32 run of this depth fits beside it): the counted fused
+    prefill, the composite one, 32 decode steps from each.  Checks:
+    every logit and state leaf finite; layer 1's cache (``layer1`` in
+    the model's ``LM`` entry, the first downstream of a flash launch)
+    fused vs composite within 1e-2 in relative L2: its input differs
+    from layer 0's flash launch by bf16 rounding, which compounds to a
+    few ulps at the largest elements, while a fault is O(1).  The
+    logits' fused-vs-composite distance is reported.  ``extra(params)``,
+    if given, runs the model's own checks on the full-depth parameters
+    and returns entries for the report."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from torch.utils import _pytree as pytree
+
+    spec = LM[key]
+    B, S, s_cache = spec["batch"], spec["prompt"], spec["s_cache"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the blocks the init's draws leave cached serve the prefill, which
+    # so times no fresh cudaMalloc
+    _, params = lm_params(cfg, master=False)
+    # one path at a time, prefill then decode, so one prefill state is
+    # alive at a time (gemma2-27b's weights leave ~25 GB for states,
+    # decode clones and activations)
+    cuda_build.reset_launch_counts()
+    st_f, lg_f, wall = prefill(cfg, params, tokens, "fused", s_cache)
+    main_launches.update(cuda_build.launch_counts)
+    l1f = spec["layer1"](st_f).float()
+    finite = [all(bool(torch.isfinite(x.float()).all())
+                  for x in pytree.tree_leaves(st_f))]
+    dl_f, ms = decode(cfg, params, st_f, follow, "fused")
+    del st_f
+    st_c, lg_c, wall_c = prefill(cfg, params, tokens, "composite", s_cache)
+    l1c = spec["layer1"](st_c).float()
+    finite.append(all(bool(torch.isfinite(x.float()).all())
+                      for x in pytree.tree_leaves(st_c)))
+    dl_c, ms_c = decode(cfg, params, st_c, follow, "composite")
+    del st_c
+    gate.check(all(finite), f"decode state not finite (fused, composite: "
+               f"{finite})")
+    for name, t in (("prefill logits", lg_f), ("composite prefill logits",
+                                               lg_c),
+                    ("decode logits", dl_f), ("composite decode logits",
+                                              dl_c)):
+        gate.check(bool(torch.isfinite(t).all()), f"{name} not finite")
+    err_l1 = float((l1f - l1c).abs().max())
+    rel_l1 = float((l1f - l1c).norm() / l1c.norm())
+    gate.check(bool(torch.isfinite(l1f).all()) and rel_l1 <= 1e-2,
+               f"layer 1 cache: fused vs composite relative L2 {rel_l1} > "
+               f"1e-2 (max|err| {err_l1})")
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    out = {"prefill_s": wall, "composite_prefill_s": wall_c,
+           "prefill_tokens_per_s": B * S / wall,
+           "decode_ms_per_step": ms, "composite_decode_ms_per_step": ms_c,
+           "layer1_cache_max_abs_err": err_l1,
+           "layer1_cache_rel_l2": rel_l1,
+           # reported, not gated: no f32 run of this depth fits the card
+           "logits_fused_vs_composite": {
+               "prefill_max": float((lg_f - lg_c).abs().max()),
+               "prefill_rel_l2": rel(lg_f, lg_c),
+               "decode_max": float((dl_f - dl_c).abs().max()),
+               "decode_rel_l2": rel(dl_f, dl_c)}}
+    if extra is not None:
+        out.update(extra(params))
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[{key} bf16 full depth] prefill {wall:.3f} s "
+        f"({out['prefill_tokens_per_s']:.0f} tok/s; composite {wall_c:.3f} "
+        f"s), decode {ms:.2f} ms/step (composite {ms_c:.2f}), peak "
+        f"{out['peak_mem_bytes'] / 2**30:.2f} GiB; {out}")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1771,7 +1982,6 @@ def phase_deepseek(report, main_launches):
     import dataclasses
 
     import torch
-    from repro_torch.kernels import cuda_build
     from repro_torch.models import Parallel
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
@@ -1882,79 +2092,359 @@ def phase_deepseek(report, main_launches):
 
     # full depth, bf16: the main path, counted from zero
     t0 = time.perf_counter()
-    _, params = lm_params(cfg, master=False)
     follow = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
                             device=DEV, dtype=torch.int32)
               for _ in range(DECODE_STEPS)]
-    cuda_build.reset_launch_counts()
-    st_f, lg_f, wall = prefill(cfg, params, tokens, "fused", s_cache)
-    main_launches.update(cuda_build.launch_counts)
-    st_c, lg_c, wall_c = prefill(cfg, params, tokens, "composite", s_cache)
-    dl_f, ms = decode(cfg, params, st_f, follow, "fused")
-    dl_c, ms_c = decode(cfg, params, st_c, follow, "composite")
-    for name, t in (("prefill logits", lg_f), ("composite prefill logits",
-                                               lg_c),
-                    ("decode logits", dl_f), ("composite decode logits",
-                                              dl_c)):
-        gate.check(bool(torch.isfinite(t).all()), f"{name} not finite")
-    for st_ in (st_f, st_c):
-        gate.check(all(bool(torch.isfinite(x.float()).all())
-                       for x in pytree.tree_leaves(st_)),
-                   "decode state not finite")
-    # layer 1's latent cache: its input differs from layer 0's flash
-    # launch by bf16 rounding, which compounds to a few ulps at the
-    # largest elements; a fault is O(1), so the gate is relative L2
-    l1f, l1c = ckv(st_f)[0].float(), ckv(st_c)[0].float()
-    err_l1 = float((l1f - l1c).abs().max())
-    rel_l1 = float((l1f - l1c).norm() / l1c.norm())
-    gate.check(bool(torch.isfinite(l1f).all()) and rel_l1 <= 1e-2,
-               f"layer 1 ckv: fused vs composite relative L2 {rel_l1} > "
-               f"1e-2 (max|err| {err_l1})")
-    # the first MoE layer (layer 1) on one input through both paths
-    p1 = pytree.tree_map(lambda a: a[0], params["scan"][0])
-    x1 = rmsnorm(p1["norm2"], params["embed"]["table"][tokens.long()],
-                 cfg.norm_eps).reshape(B * S, cfg.d_model)
-    w1, idx1, _ = M.route(p1["ffn"]["router"], x1, cfg.top_k,
-                          n_experts=cfg.n_experts)
-    cap = M.moe_capacity(cfg, B * S)
-    fb, fs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap, impl="fused")
-    cb, cs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap,
-                            impl="composite")
-    gate.check(torch.equal(fb, cb) and torch.equal(fs, cs),
-               "layer 1 dispatch buffers differ")
-    yf = M._expert_ffn(p1["ffn"]["experts"], fb).reshape(-1, cfg.d_model)
-    got = M.moe_combine(yf, fs, w1, impl="fused")
-    want = M.moe_combine(yf, cs, w1, impl="composite")
-    err_moe = combine_close(gate, got, want, yf, fs.view(B * S, -1).to(
-        torch.int32), w1, "bfloat16", "layer 1 routed output")
-    del p1, x1, fb, cb, yf, got, want
-    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
-    out["bfloat16"] = {
-        "prefill_s": wall, "composite_prefill_s": wall_c,
-        "prefill_tokens_per_s": B * S / wall,
-        "decode_ms_per_step": ms, "composite_decode_ms_per_step": ms_c,
-        "layer1_ckv_max_abs_err": err_l1, "layer1_ckv_rel_l2": rel_l1,
-        "layer1_routed_max_abs_err": err_moe,
-        "dropped_rows_layer1": int((fs < 0).sum()),
-        # reported, not gated: no f32 run of this depth fits the card
-        "logits_fused_vs_composite": {
-            "prefill_max": float((lg_f - lg_c).abs().max()),
-            "prefill_rel_l2": rel(lg_f, lg_c),
-            "decode_max": float((dl_f - dl_c).abs().max()),
-            "decode_rel_l2": rel(dl_f, dl_c)}}
+
+    def routed(params):
+        """The first MoE layer (layer 1) on one input through both
+        paths, within one bfloat16 ulp."""
+        p1 = pytree.tree_map(lambda a: a[0], params["scan"][0])
+        x1 = rmsnorm(p1["norm2"], params["embed"]["table"][tokens.long()],
+                     cfg.norm_eps).reshape(B * S, cfg.d_model)
+        w1, idx1, _ = M.route(p1["ffn"]["router"], x1, cfg.top_k,
+                              n_experts=cfg.n_experts)
+        cap = M.moe_capacity(cfg, B * S)
+        fb, fs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap, impl="fused")
+        cb, cs = M.moe_dispatch(x1, idx1, cfg.n_experts, cap,
+                                impl="composite")
+        gate.check(torch.equal(fb, cb) and torch.equal(fs, cs),
+                   "layer 1 dispatch buffers differ")
+        yf = M._expert_ffn(p1["ffn"]["experts"], fb).reshape(
+            -1, cfg.d_model)
+        got = M.moe_combine(yf, fs, w1, impl="fused")
+        want = M.moe_combine(yf, cs, w1, impl="composite")
+        err = combine_close(gate, got, want, yf, fs.view(B * S, -1).to(
+            torch.int32), w1, "bfloat16", "layer 1 routed output")
+        return {"layer1_routed_max_abs_err": err,
+                "dropped_rows_layer1": int((fs < 0).sum())}
+
+    out["bfloat16"] = lm_full_depth("deepseek", cfg, tokens, follow, gate,
+                                    main_launches, routed)
     times["bfloat16_s"] = time.perf_counter() - t0
     out["times"] = times
-    r = out["bfloat16"]
-    log(f"[deepseek bf16] prefill {wall:.3f} s "
-        f"({r['prefill_tokens_per_s']:.0f} tok/s; composite {wall_c:.3f} "
-        f"s), decode {ms:.2f} ms/step (composite {ms_c:.2f}); {r}")
     for name, n in spec["launches"].items():
         gate.check(main_launches.get(name) == n,
                    f"fused prefill launched {name} "
                    f"{main_launches.get(name)} times, not {n}")
     report["deepseek"] = out
-    del st_f, st_c, params
+    gate.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the paper's workloads (K-Means, MolDyn, PlhamJ) on the card
+# ---------------------------------------------------------------------------
+KM_POINTS = 1 << 24        # rows of 4 f64 (x, y, z, cluster): 512 MiB
+KM_CHECK_POINTS = 1 << 16  # card vs the port's CPU run
+KM = {"n_places": 8, "dim": 3, "k": 16, "seed": SEED}
+KM_SPEEDS = (1,) * 7 + (3,)
+KM_PERIOD = 2
+KM_ITERS = 10
+MD_B = 8788                # Java Grande section 3, size B
+MD_A = 2048                # size A
+MD = {"n_places": 4, "ndivide": 5, "seed": SEED}
+MD_STEPS = 10
+MD_CHECK_STEPS = 3
+MD_SPEEDS = (1, 1, 1, 2)
+# benchmarks/run.py's PlhamJ rows (the paper's Fig 7 configurations)
+PLHAM_CASES = {
+    "evenA": dict(n_places=5, speeds=(1, 1, 1, 1, 1)),
+    "unevenC": dict(n_places=6, speeds=(1, 1, 1, 1, 1, 3)),
+    "disturbA": dict(n_places=5, speeds=(1, 1, 1, 1, 1),
+                     disturb_period=25),
+}
+PLHAM_STRATEGIES = ("none", "level_extremes", "proportional")
+PLHAM = {"n_agents": 800, "lb_period": 5, "seed": 1}
+PLHAM_ROUNDS = 100
+PLHAM_BIG = {"n_agents": 65536, "rounds": 20}
+
+
+def kmeans_glb():
+    from repro_torch.core import GLBConfig
+    return GLBConfig(period=KM_PERIOD, transport="device")
+
+
+def kmeans_points(km):
+    """Every point's row (coordinates, cluster) on its place's device,
+    in global index order; fails unless the places hold each index
+    once."""
+    import torch
+    idx, rows = [], []
+    for p in km.group.members:
+        if km.points.local_size(p):
+            r, i = km.points.to_local_matrix(p)
+            idx.append(torch.as_tensor(i, device=r.device))
+            rows.append(r)
+    idx = torch.cat(idx)
+    require(torch.equal(idx.sort().values,
+                        torch.arange(km.n_points, device=idx.device)),
+            "the places do not hold every point once")
+    out = torch.empty_like(torch.cat(rows))
+    out[idx] = torch.cat(rows)
+    return out
+
+
+def timed_ms(step, n, end=None):
+    """Milliseconds per call of ``step`` over ``n`` calls (then ``end``,
+    if given, inside the time), closed by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    if end is not None:
+        end()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_kmeans(report, main_launches):
+    """8 places, 2^24 points, k 16, 10 iterations, the GLB relocating
+    through the device transport (the codec kernels) toward the fast
+    place: inertia falls below 0.8x its start, the centroids equal a
+    1-place run's within 1e-9 (the same points), every row the windows
+    moved is exact (coordinates equal to the draw bit for bit, cluster
+    equal to the 1-place run's), and at 2^16 points the card equals the
+    port's CPU run (assignments equal, centroids within 1e-9)."""
+    import torch
+    from repro_torch.apps import KMeans
+    from repro_torch.apps.kmeans import draw_points
+    from repro_torch.kernels import cuda_build
+
+    gate = Gate("kmeans")
+    t0 = time.perf_counter()
+    km = KMeans(n_points=KM_POINTS, glb=kmeans_glb(), speeds=KM_SPEEDS,
+                device=DEV, **KM)
+    setup_s = time.perf_counter() - t0
+    i0 = km.inertia()
+    cuda_build.reset_launch_counts()
+    ms = timed_ms(km.iterate, KM_ITERS, km.finish)
+    main_launches.update(cuda_build.launch_counts)
+    i1 = km.inertia()
+    st = km.balancer.stats
+    out = {"points": KM_POINTS, **KM, "iterations": KM_ITERS,
+           "speeds": KM_SPEEDS, "glb_period": KM_PERIOD,
+           "ms_per_iteration": ms, "setup_s": setup_s, "inertia_start": i0,
+           "inertia_end": i1,
+           "loads": [km.points.local_size(p) for p in km.group.members],
+           "rebalances": st.rebalances, "glb_bytes_moved": st.bytes_moved}
+    gate.check(i1 < 0.8 * i0, f"inertia {i1} not below 0.8 x {i0}")
+    for name in ("reloc_encode_pack", "reloc_decode_rows"):
+        gate.check(main_launches.get(name, 0) > 0,
+                   f"the relocation windows never launched {name}")
+    gate.check(out["loads"][-1] > max(out["loads"][:-1]),
+               f"the fast place did not gain points: {out['loads']}")
+    centroids = km.centroids.clone()
+    # the rows after the last window, by global index: the coordinates
+    # are never written, so each equals the draw bit for bit
+    rows = kmeans_points(km)
+    del km
     torch.cuda.empty_cache()
+    drawn = torch.from_numpy(draw_points(KM_POINTS, KM["dim"], KM["k"],
+                                         KM["seed"])[1]).to(DEV)
+    moved = int((rows[:, :KM["dim"]] != drawn[:, :KM["dim"]]).any(1).sum())
+    out["points_differing_from_draw"] = moved
+    gate.check(moved == 0, f"{moved} points' coordinates differ from the "
+               "draw after relocation")
+    del drawn
+
+    one = KMeans(n_places=1, n_points=KM_POINTS, dim=KM["dim"], k=KM["k"],
+                 seed=KM["seed"], device=DEV)
+    out["one_place_ms_per_iteration"] = timed_ms(one.iterate, KM_ITERS)
+    err = float((one.centroids - centroids).abs().max())
+    out["centroids_vs_one_place_max_abs_err"] = err
+    gate.check(err <= 1e-9, f"centroids vs 1 place: {err} > 1e-9")
+    # the same centroids in every iteration assign every point alike:
+    # the cluster column of each relocated row is held too
+    differ = int((kmeans_points(one)[:, KM["dim"]]
+                  != rows[:, KM["dim"]]).sum())
+    out["assignments_differing_from_one_place"] = differ
+    gate.check(differ == 0, f"{differ} assignments differ from the "
+               "1-place run")
+    del one, rows
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for dev in (DEV, "cpu"):
+        km = KMeans(n_points=KM_CHECK_POINTS, glb=kmeans_glb(),
+                    speeds=KM_SPEEDS, device=dev, **KM)
+        for _ in range(KM_ITERS):
+            km.iterate()
+        km.finish()
+        runs[dev] = (km.centroids.cpu(),
+                     kmeans_points(km)[:, KM["dim"]].cpu(),
+                     [km.points.local_size(p) for p in km.group.members])
+    err = float((runs[DEV][0] - runs["cpu"][0]).abs().max())
+    out["card_vs_cpu"] = {"points": KM_CHECK_POINTS,
+                          "centroids_max_abs_err": err,
+                          "loads": runs[DEV][2]}
+    gate.check(err <= 1e-9, f"card vs CPU centroids: {err} > 1e-9")
+    gate.check(torch.equal(runs[DEV][1], runs["cpu"][1]),
+               "card vs CPU: assignments differ")
+    gate.check(runs[DEV][2] == runs["cpu"][2],
+               f"card vs CPU loads {runs[DEV][2]} != {runs['cpu'][2]}")
+    log(f"[kmeans] {out}")
+    report["kmeans"] = out
+    gate.close()
+
+
+def phase_moldyn(report, main_launches):
+    """Java Grande size B (8 788 particles) over 4 places, 10 steps: the
+    replicas stay in sync and the positions equal a 1-place run's within
+    rtol 1e-10; with the GLB at speeds (1, 1, 1, 2) too.  At size A, 3
+    steps on the card equal the port's CPU run (rtol 1e-10, equal
+    allreduce bytes)."""
+    import torch
+    from repro_torch.apps import MolDyn
+    from repro_torch.core import GLBConfig
+    from repro_torch.kernels import cuda_build
+
+    gate = Gate("moldyn")
+    cuda_build.reset_launch_counts()
+    md = MolDyn(n_particles=MD_B, device=DEV, **MD)
+    pairs = sum(s.total_pairs() for s in md.tiles)
+    first_ms = timed_ms(md.step, 1)         # builds each tile's pairs
+    ms = timed_ms(md.step, MD_STEPS - 1)
+    main_launches.update(cuda_build.launch_counts)
+    out = {"particles": MD_B, **MD, "steps": MD_STEPS,
+           "pairs_per_step": pairs, "first_step_ms": first_ms,
+           "ms_per_step": ms, "allreduce_bytes": md.allreduce_bytes,
+           "energy": md.energy()}
+    gate.check(md.replicas_in_sync(), "replicas out of sync")
+    pos = md.positions().clone()
+    del md
+    one = MolDyn(n_places=1, n_particles=MD_B, ndivide=MD["ndivide"],
+                 seed=MD["seed"], device=DEV)
+    out["one_place_ms_per_step"] = timed_ms(one.step, MD_STEPS)
+    gate.check(torch.allclose(one.positions(), pos, rtol=1e-10, atol=0),
+               "positions differ from the 1-place run")
+    out["vs_one_place_max_abs_err"] = float(
+        (one.positions() - pos).abs().max())
+    del one
+    glb = MolDyn(n_particles=MD_B, glb=GLBConfig(period=2),
+                 speeds=MD_SPEEDS, device=DEV, **MD)
+    out["glb_ms_per_step"] = timed_ms(glb.step, MD_STEPS)
+    out["glb_rebalances"] = glb.balancer.stats.rebalances
+    out["glb_pairs_by_place"] = [s.total_pairs() for s in glb.tiles]
+    gate.check(glb.replicas_in_sync(), "GLB run: replicas out of sync")
+    gate.check(torch.allclose(glb.positions(), pos, rtol=1e-10, atol=0),
+               "GLB run: positions differ from the 4-place run")
+    gate.check(glb.balancer.stats.rebalances > 0, "GLB run never moved")
+    del glb
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for dev in (DEV, "cpu"):
+        m = MolDyn(n_particles=MD_A, device=dev, **MD)
+        for _ in range(MD_CHECK_STEPS):
+            m.step()
+        runs[dev] = (m.positions().cpu(), m.allreduce_bytes)
+    a, b = runs[DEV][0], runs["cpu"][0]
+    out["card_vs_cpu"] = {"particles": MD_A, "steps": MD_CHECK_STEPS,
+                          "max_abs_err": float((a - b).abs().max()),
+                          "allreduce_bytes": runs[DEV][1]}
+    gate.check(torch.allclose(a, b, rtol=1e-10, atol=0),
+               "size A: card vs CPU positions differ")
+    gate.check(runs[DEV][1] == runs["cpu"][1],
+               f"allreduce bytes {runs[DEV][1]} != CPU {runs['cpu'][1]}")
+    log(f"[moldyn] {out}")
+    report["moldyn"] = out
+    gate.close()
+
+
+def counted(main_launches, run):
+    """``run()`` with the launch counts set to 0 just before it; its
+    launches are added to ``main_launches``."""
+    from repro_torch.kernels import cuda_build
+
+    cuda_build.reset_launch_counts()
+    out = run()
+    for name, n in cuda_build.launch_counts.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    return out
+
+
+def plham_run(case, strategy, device, n_agents=None, rounds=PLHAM_ROUNDS):
+    """One PlhamJ configuration; returns (sim, wall seconds)."""
+    import torch
+    from repro_torch.apps import PlhamSim
+
+    kw = dict(PLHAM_CASES[case], **PLHAM, strategy=strategy)
+    if n_agents is not None:
+        kw["n_agents"] = n_agents
+    sim = PlhamSim(**kw, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(rounds)
+    torch.cuda.synchronize()
+    return sim, time.perf_counter() - t0
+
+
+def phase_plham(report, main_launches):
+    """The nine configurations of ``benchmarks/run.py`` (evenA, unevenC,
+    disturbA x none, level_extremes, proportional; 800 agents, 100
+    rounds): unevenC/level_extremes gains >= 5 %, evenA/level_extremes
+    stays within 5 %, and every run's load history and relocated bytes
+    equal the port's CPU run, its simulated time within rtol 1e-12.
+    Then unevenC/level_extremes at 65 536 agents for 20 rounds."""
+    import numpy as np
+
+    gate = Gate("plham")
+    rows = {}
+    for case in PLHAM_CASES:
+        base = None
+        for strat in PLHAM_STRATEGIES:
+            sim, wall = counted(main_launches,
+                                lambda: plham_run(case, strat, DEV))
+            ref, _ = plham_run(case, strat, "cpu")
+            if strat == "none":
+                base = sim.sim_time
+            name = f"{case}_{strat}"
+            rows[name] = {
+                "simtime": sim.sim_time,
+                "gain_pct": (base - sim.sim_time) / base * 100,
+                "relocated_bytes": sim.relocated,
+                "wall_us_per_round": wall / PLHAM_ROUNDS * 1e6,
+                "dispatch_us_per_round": sim.dispatch_s / PLHAM_ROUNDS
+                * 1e6}
+            gate.check(np.isclose(sim.sim_time, ref.sim_time, rtol=1e-12,
+                                  atol=0),
+                       f"{name}: sim_time {sim.sim_time} vs CPU "
+                       f"{ref.sim_time}")
+            gate.check(sim.relocated == ref.relocated,
+                       f"{name}: relocated {sim.relocated} vs CPU "
+                       f"{ref.relocated}")
+            for i, (a, b) in enumerate(zip(sim.distribution_history,
+                                           ref.distribution_history)):
+                if not np.array_equal(a, b):
+                    gate.check(False, f"{name}: round {i} loads {a.tolist()} "
+                               f"vs CPU {b.tolist()} (margin "
+                               f"{(a - b).tolist()})")
+                    break
+            gate.check(len(sim.distribution_history)
+                       == len(ref.distribution_history) == PLHAM_ROUNDS,
+                       f"{name}: history lengths")
+    gate.check(rows["unevenC_level_extremes"]["gain_pct"] >= 5.0,
+               f"unevenC/level_extremes gains "
+               f"{rows['unevenC_level_extremes']['gain_pct']} % < 5 %")
+    gate.check(abs(rows["evenA_level_extremes"]["gain_pct"]) < 5.0,
+               f"evenA/level_extremes moves "
+               f"{rows['evenA_level_extremes']['gain_pct']} % >= 5 %")
+    sim, wall = counted(main_launches, lambda: plham_run(
+        "unevenC", "level_extremes", DEV, n_agents=PLHAM_BIG["n_agents"],
+        rounds=PLHAM_BIG["rounds"]))
+    big = {"case": "unevenC_level_extremes", **PLHAM_BIG,
+           "wall_ms_per_round": wall / PLHAM_BIG["rounds"] * 1e3,
+           "dispatch_ms_per_round": sim.dispatch_s / PLHAM_BIG["rounds"]
+           * 1e3, "dispatch_share": sim.dispatch_s / wall,
+           "trades_per_round": sim.trades / PLHAM_BIG["rounds"],
+           "dispatch_us_per_trade": sim.dispatch_s / max(sim.trades, 1)
+           * 1e6,
+           "simtime": sim.sim_time, "relocated_bytes": sim.relocated}
+    for name, r in rows.items():
+        log(f"[plham] {name}: {r}")
+    log(f"[plham] {PLHAM_BIG['n_agents']} agents: {big}")
+    report["plham"] = {"rows": rows, "big": big}
     gate.close()
 
 
@@ -2080,6 +2570,7 @@ def profile_main_paths(shift, path):
     out = {"windows_glb": profile_pass(
         lambda: (run_windows(shift), main_path_glb(shift)), path)}
     for key, spec in LM.items():
+        free_memory(f"profile {key}", out)
         cfg = lm_config(key)
         params = lm_params(cfg, master=False)[1]
         tokens = torch.randint(0, cfg.vocab_size,
@@ -2101,6 +2592,7 @@ def profile_main_paths(shift, path):
                                                     named(key))
         del params, tokens
         torch.cuda.empty_cache()
+    out.update(profile_apps(named, out))
     for key in SERVE_ROUNDS:
         tag = "serving" if key == "qwen2" else f"{key}_serving"
         engine = DecodeEngine(lm_config(key), s_cache=1024, max_batch=8,
@@ -2114,6 +2606,29 @@ def profile_main_paths(shift, path):
             named(tag))
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+def profile_apps(named, report):
+    """The paper's workloads once each under the profiler: 3 K-Means
+    iterations (2^24 points, the GLB on the device transport), 2 MolDyn
+    steps at size B, 20 PlhamJ rounds of unevenC/level_extremes."""
+    from repro_torch.apps import KMeans, MolDyn, PlhamSim
+
+    free_memory("profile apps", report)
+    km = KMeans(n_points=KM_POINTS, glb=kmeans_glb(), speeds=KM_SPEEDS,
+                device=DEV, **KM)
+    md = MolDyn(n_particles=MD_B, device=DEV, **MD)
+    md.step()                      # the tiles' pairs, built once
+    sim = PlhamSim(**PLHAM_CASES["unevenC"], **PLHAM,
+                   strategy="level_extremes", device=DEV)
+    out = {"kmeans": profile_pass(
+               lambda: [km.iterate() for _ in range(3)] and km.finish(),
+               named("kmeans")),
+           "moldyn": profile_pass(lambda: [md.step() for _ in range(2)],
+                                  named("moldyn")),
+           "plham": profile_pass(lambda: sim.run(20), named("plham"))}
+    del km, md, sim
     return out
 
 
@@ -2313,6 +2828,20 @@ def main(argv=None) -> int:
     launches["deepseek_serving"] = {}
     with Phase("deepseek_serving", report):
         phase_serving(report, launches["deepseek_serving"], "deepseek")
+    # main paths 9-11 (phase 14): the paper's workloads, each counted
+    # inside
+    for name, run in (("kmeans", phase_kmeans), ("moldyn", phase_moldyn),
+                      ("plham", phase_plham)):
+        launches[name] = {}
+        free_memory(name, report)
+        with Phase(name, report):
+            run(report, launches[name])
+    # main paths 12-14 (phases 15-17): the dense configs' fused prefills
+    for key in ("phi4", "gemma3", "gemma2"):
+        launches[f"{key}_prefill"] = {}
+        free_memory(key, report)
+        with Phase(f"{key}_prefill_decode", report):
+            phase_lm(key, report, launches[f"{key}_prefill"])
     report["launches"] = launches
     if args.profile:
         with Phase("profile", report):
@@ -2350,6 +2879,7 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "qwen2", "serving", "recurrentgemma", "xlstm",
         "recurrentgemma_serving", "deepseek", "deepseek_serving",
+        "kmeans", "moldyn", "plham", "phi4", "gemma3", "gemma2",
         "flash_d192", "flash_d256", "flash_build", "mlstm_build")}
         | {"launches": launches}))
     print(smi)

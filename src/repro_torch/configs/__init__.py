@@ -2,10 +2,14 @@
 
 The same ten names as ``repro.configs``.  The port carries the config
 modules of the architectures whose mixers it has ported: ``qwen2_1_5b``
-(global attention + dense SwiGLU), ``recurrentgemma_2b`` (RG-LRU + local
-attention), ``xlstm_350m`` (mLSTM + sLSTM) and ``deepseek_v2_lite_16b``
-(MLA + MoE).  The other six come in later slices (ROADMAP.md queue 1);
-asking for one raises ``NotImplementedError``.
+and ``phi4_mini_3_8b`` (global attention + dense SwiGLU),
+``gemma2_27b`` (local/global alternation, attention and final logit
+softcaps), ``gemma3_12b`` (5 local : 1 global, QK norm),
+``recurrentgemma_2b`` (RG-LRU + local attention), ``xlstm_350m`` (mLSTM
++ sLSTM) and ``deepseek_v2_lite_16b`` (MLA + MoE).  Each module is the
+reference's, unchanged.  The other three (``deepseek_v3_671b``,
+``qwen2_vl_2b``, ``whisper_small``) come in later slices (ROADMAP.md
+queue 1); asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ ARCH_IDS = [
 ]
 
 #: the configs whose every mixer the port runs
-PORTED = ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m",
-          "deepseek_v2_lite_16b")
+PORTED = ("qwen2_1_5b", "gemma2_27b", "gemma3_12b", "phi4_mini_3_8b",
+          "recurrentgemma_2b", "xlstm_350m", "deepseek_v2_lite_16b")
 
 
 def get_config(name: str) -> ModelConfig:

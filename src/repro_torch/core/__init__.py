@@ -5,10 +5,11 @@ APGAS Programming Model with Relocatable Distributed Collections",
 
 Exports the same names ``repro.core`` exports for the modules ported so
 far: distribution, collections, relocation, transport, teamed
-operations, the balancer, the GLB and its device steal loop, and
-telemetry.
+operations, the balancer, the GLB and its device steal loop, the
+accumulator, the ranged-list product and telemetry.
 """
 from . import telemetry
+from .accumulator import Accumulator, segment_accept
 from .balancer import BalanceDecision, LevelExtremes, LoadBalancer, Proportional
 from .collections import (
     CachableArray,
@@ -34,6 +35,7 @@ from .glb import (
     ring_lifelines,
     spmd_rebalance,
 )
+from .product import RangedListProduct, Tile
 from .relocation import (
     AsyncRelocation,
     CollectiveMoveManager,
@@ -66,6 +68,7 @@ from .transport import (
 )
 
 __all__ = [
+    "Accumulator", "segment_accept",
     "BalanceDecision", "LevelExtremes", "LoadBalancer", "Proportional",
     "CachableArray", "CachableChunkedList", "DistArray", "DistBag",
     "DistIdMap", "DistMap", "DistMultiMap", "PlaceGroup",
@@ -74,6 +77,7 @@ __all__ = [
     "GlobalLoadBalancer", "ListWorkload", "MultiCollectionWorkload",
     "hypercube_lifelines",
     "moves_to_matrix", "ring_lifelines", "spmd_rebalance",
+    "RangedListProduct", "Tile",
     "AsyncRelocation", "CollectiveMoveManager", "spmd_counts",
     "spmd_relocate", "spmd_relocate_back",
     "run_device_steal", "spmd_steal_loop", "spmd_steal_plan",

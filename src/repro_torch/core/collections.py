@@ -24,6 +24,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..analysis import sanitizer as _san
+from .device import default_device
 from .distribution import LongRange, RangeDistribution
 
 __all__ = [
@@ -327,13 +328,7 @@ class PlaceGroup:
 
     def __init__(self, n_places: int, *, device=None,
                  members: Sequence[int] | None = None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "PlaceGroup defaults to the CUDA device and none is "
-                    "available; pass device='cpu' to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.n_places = int(n_places)
         self.members = tuple(members) if members is not None \
             else tuple(range(n_places))

@@ -1,4 +1,4 @@
-"""Where the port's model entry points put their tensors by default."""
+"""Where the port's entry points put their tensors by default."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +12,7 @@ def default_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "the port's models default to the CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU")
+                "the port's entry points default to the CUDA device and "
+                "none is available; pass device='cpu' to run on the CPU")
         device = "cuda"
     return torch.device(device)

@@ -687,6 +687,10 @@ class AsyncRelocation:
             self.manager._commit(self._counts, self._moved_bytes,
                                  self.transport_stats)
         self._payloads = None   # a chained successor must not pin them
+        # nor the collections: this handle and its manager's in-flight
+        # list refer to each other, a cycle only the garbage collector
+        # frees
+        self._update_dists = ()
         self.trace["t_done"] = time.perf_counter()
         self.finished = True
         if telemetry.enabled():

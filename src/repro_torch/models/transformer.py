@@ -42,7 +42,7 @@ from torch.utils import _pytree as pytree
 from .attention import (attn_attend_cache, attn_decode_project, attn_forward,
                         attn_init)
 from .config import LayerSlot, ModelConfig
-from .device import default_device
+from ..core.device import default_device
 from .layers import (dense_init, embed_init, rmsnorm, rmsnorm_init, swiglu,
                      swiglu_init)
 from .moe import (mla_attend_cache, mla_decode_project, mla_forward,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .device import default_device
+from ..core.device import default_device
 from .parallel import Parallel
 from . import transformer as T
 

@@ -34,6 +34,7 @@ EWMA/GLB path (see ``serving/decode.py``).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -96,10 +97,14 @@ class ElasticServingDriver:
                                         ema=traffic_ema,
                                         transport=transport)
         self.router = Router(self.seqs)
+        # the balancer holds the hook weakly: a bound method would close
+        # a cycle (driver -> balancer -> driver) that keeps the engine
+        # and every SeqKV alive until a garbage collection
+        hook = weakref.WeakMethod(self._window_finished)
         self.glb = GlobalLoadBalancer(
             self.group, self.workload,
             glb or GLBConfig(period=4, policy="proportional", ema=0.3),
-            on_finish=self._window_finished)
+            on_finish=lambda handle: hook()(handle))
         # resolved data plane (the GLB filled a None in from its config)
         self.transport = self.workload.transport
         self.monitor = HeartbeatMonitor(n_replicas,

@@ -22,7 +22,10 @@ tolerance of ``tests/test_arch_smoke.py``; the recurrence kernels and
 the recurrent models within the tolerances stated at their tests; the
 MoE gather exactly, the MoE combine within ``1e-6`` of each row's
 largest term (both sum in f32, in another order), plus one ulp of the
-output type in bfloat16 and float16 (each rounds its sum once).
+output type in bfloat16 and float16 (each rounds its sum once);
+``segment_accept`` and ``Accumulator.totals`` the same bits on two
+calls; the paper's apps on the card against their CPU runs at the
+tolerances of ``tests/test_torch_apps.py``.
 """
 import dataclasses
 
@@ -653,3 +656,80 @@ def test_deepseek_fused_matches_composite_on_card():
                                  impl="composite")
         torch.testing.assert_close(lf, lc, atol=1e-3, rtol=1e-3)
         tok = lf.argmax(-1)[:, None].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the paper's workloads on the card: the accumulator's sums are fixed-order,
+# and each app equals its CPU run
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_segment_accept_gives_the_same_bits_twice_on_card(dtype):
+    _need_card()
+    from repro_torch.core import segment_accept
+
+    rng = np.random.default_rng(3)
+    partials = torch.from_numpy(
+        rng.standard_normal((4, 200_000, 3)).astype(dtype))
+    ids = torch.from_numpy(rng.integers(-1, 65, 200_000))
+    a = segment_accept(partials.cuda(), ids.cuda(), 64)
+    b = segment_accept(partials.cuda(), ids.cuda(), 64)
+    assert torch.equal(a, b)
+    want = segment_accept(partials, ids, 64)
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    torch.testing.assert_close(a.cpu(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_accumulator_totals_give_the_same_bits_twice_on_card():
+    _need_card()
+    from repro_torch.core import Accumulator, LongRange
+
+    def run():
+        acc = Accumulator(LongRange(0, 5000), (3,), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(6):
+            acc.grain().copy_(torch.randn(5000, 3, generator=g,
+                                          device="cuda", dtype=torch.float64))
+        return acc.totals()
+
+    assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+def test_apps_on_card_match_their_cpu_runs():
+    _need_card()
+    from repro_torch.apps import KMeans, MolDyn, PlhamSim
+    from repro_torch.core import GLBConfig
+
+    kms = [KMeans(n_places=4, n_points=4096, k=8, seed=1, speeds=(1, 1, 1, 3),
+                  glb=GLBConfig(period=2, transport="device"), device=dev)
+           for dev in ("cuda", "cpu")]
+    before = dict(rc.launch_counts)
+    for _ in range(6):
+        for km in kms:
+            km.iterate()
+    for km in kms:
+        km.finish()
+    assert rc.launch_counts["reloc_encode_pack"] > before["reloc_encode_pack"]
+    torch.testing.assert_close(kms[0].centroids.cpu(), kms[1].centroids,
+                               atol=1e-9, rtol=0)
+    mds = [MolDyn(n_places=4, n_particles=343, ndivide=5, seed=2, device=dev)
+           for dev in ("cuda", "cpu")]
+    for _ in range(3):
+        for md in mds:
+            md.step()
+    torch.testing.assert_close(mds[0].positions().cpu(), mds[1].positions(),
+                               atol=0, rtol=1e-10)
+    assert mds[0].allreduce_bytes == mds[1].allreduce_bytes
+    sims = [PlhamSim(6, n_agents=400, strategy="level_extremes",
+                     speeds=(1, 1, 1, 1, 1, 3), lb_period=5, seed=1,
+                     device=dev) for dev in ("cuda", "cpu")]
+    for sim in sims:
+        sim.run(30)
+    assert sims[0].relocated == sims[1].relocated > 0
+    for a, b in zip(sims[0].distribution_history,
+                    sims[1].distribution_history):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(sims[0].sim_time, sims[1].sim_time,
+                               rtol=1e-12)

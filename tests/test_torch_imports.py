@@ -54,11 +54,15 @@ def test_package_has_the_slice_modules():
                 "serving/elastic.py", "serving/decode.py",
                 "runtime/fault_tolerance.py", "kernels/rg_lru.py",
                 "kernels/csrc/rg_lru.cu", "kernels/mlstm.py",
-                "kernels/csrc/mlstm.cu", "models/device.py",
+                "kernels/csrc/mlstm.cu", "core/device.py",
                 "models/rglru.py", "models/ssm.py",
                 "configs/recurrentgemma_2b.py", "configs/xlstm_350m.py",
                 "kernels/moe_dispatch.py", "kernels/csrc/moe_dispatch.cu",
-                "models/moe.py", "configs/deepseek_v2_lite_16b.py"):
+                "models/moe.py", "configs/deepseek_v2_lite_16b.py",
+                "core/accumulator.py", "core/product.py", "apps/__init__.py",
+                "apps/kmeans.py", "apps/moldyn.py", "apps/plham.py",
+                "configs/gemma2_27b.py", "configs/gemma3_12b.py",
+                "configs/phi4_mini_3_8b.py"):
         assert (PORT / mod).is_file(), mod
 
 
@@ -74,7 +78,7 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.core.interop, repro_torch.models, "
             "repro_torch.configs, repro_torch.serving, "
-            "repro_torch.runtime\n"
+            "repro_torch.runtime, repro_torch.apps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

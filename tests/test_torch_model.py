@@ -1,4 +1,5 @@
-"""The port's model (qwen2 family) against the JAX package.
+"""The port's model (qwen2 family, and the dense configs gemma2-27b,
+gemma3-12b and phi4-mini-3.8b) against the JAX package.
 
 Both packages start from one JAX ``zoo.init_params(cfg, seed)``: the
 port takes it through ``core.interop.params_from_numpy`` (a copy: leaf
@@ -12,6 +13,15 @@ head_dim 16):
 * 8 teacher-forced ``decode_step`` s from those states;
 * the port's sequential ``prefill`` vs its ``prefill_forward``;
 * ``init_decode_state`` leaf paths, shapes, dtypes and flatten order.
+* gemma2-27b, gemma3-12b and phi4-mini-3.8b at ``ModelConfig.reduced()``
+  (d_model 64, head_dim 16, window 16; gemma3's one period of 5 local +
+  1 global layers) on prompts of 24 tokens, longer than the window:
+  prefill logits and every decode-state leaf, then 8 teacher-forced
+  decode steps.  In bfloat16 the logits are held at ``3e-2`` and every
+  state leaf no further from the float32 run than the JAX package's
+  bfloat16 leaf is (x1.5 in relative L2): six layers of bf16 residual
+  rounding in two different orders move single cache elements past
+  ``3e-2`` in either package, qwen2 at the same depth alike.
 
 Tolerances: float32 compute ``1e-4``; bfloat16 (the config's compute
 dtype) ``3e-2``, as ``tests/test_arch_smoke.py`` holds the JAX package's
@@ -90,7 +100,8 @@ def test_configs_are_the_reference_configs():
     from repro_torch.configs import PORTED
 
     assert ARCH_IDS == J_ARCH_IDS
-    assert PORTED == ("qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m",
+    assert PORTED == ("qwen2_1_5b", "gemma2_27b", "gemma3_12b",
+                      "phi4_mini_3_8b", "recurrentgemma_2b", "xlstm_350m",
                       "deepseek_v2_lite_16b")
     assert _same(get_config("qwen2-1.5b"), j_get_config("qwen2_1_5b"))
     for name in PORTED:
@@ -282,3 +293,115 @@ def test_unported_pieces_raise():
             zoo.init_params(cfg, 0, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.init_decode_state(cfg, 1, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the dense configs: gemma2-27b, gemma3-12b, phi4-mini-3.8b
+# ---------------------------------------------------------------------------
+DENSE = ("gemma2_27b", "gemma3_12b", "phi4_mini_3_8b")
+DENSE_PROMPT = 24       # longer than the reduced window of 16
+DENSE_CACHE = 32
+BF16_MARGIN = 1.5
+_DENSE_RUNS: dict = {}
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _dense_run(arch, dtype):
+    """Both packages' prefill + 8 decode steps of one reduced config, from
+    one JAX parameter draw: (jax logits, port logits, jax leaves, port
+    leaves, jax state, port state), each logits array stacked prefill
+    first."""
+    key = (arch, dtype)
+    if key not in _DENSE_RUNS:
+        jcfg = dataclasses.replace(j_get_config(arch).reduced(), dtype=dtype)
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+        assert _same(cfg, jcfg)
+        jp = jzoo.init_params(jcfg, 0)
+        tp = interop.params_from_numpy(
+            cfg, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+        rng = np.random.default_rng(DENSE.index(arch))
+        tokens = rng.integers(0, cfg.vocab_size,
+                              (2, DENSE_PROMPT)).astype(np.int32)
+        follow = rng.integers(0, cfg.vocab_size, (8, 2, 1)).astype(np.int32)
+        js, jl = JT.prefill_forward(jp, jcfg, JParallel(),
+                                    {"tokens": jnp.asarray(tokens)},
+                                    DENSE_CACHE, impl="pallas_interpret")
+        ts, tl = T.prefill_forward(tp, cfg, Parallel(),
+                                   {"tokens": torch.from_numpy(tokens)},
+                                   DENSE_CACHE, impl="fused")
+        assert _paths(ts) == _paths(js)
+        leaves = ([_f32(x) for x in jax.tree_util.tree_leaves(js)],
+                  [_f32(x) for x in interop.pytree.tree_leaves(ts)])
+        jls, tls = [_f32(jl)], [_f32(tl)]
+        for tok in follow:
+            js, jl = JT.decode_step(jp, jcfg, JParallel(), js,
+                                    jnp.asarray(tok))
+            ts, tl = T.decode_step(tp, cfg, Parallel(), ts,
+                                   torch.from_numpy(tok))
+            jls.append(_f32(jl))
+            tls.append(_f32(tl))
+        leaves[0].extend(_f32(x) for x in jax.tree_util.tree_leaves(js))
+        leaves[1].extend(_f32(x) for x in interop.pytree.tree_leaves(ts))
+        _DENSE_RUNS[key] = (np.stack(jls), np.stack(tls), leaves[0],
+                            leaves[1], js, ts)
+    return _DENSE_RUNS[key]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_prefill_and_decode_match_jax(arch, dtype):
+    jl, tl, jleaves, tleaves, _, _ = _dense_run(arch, dtype)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(tl, jl, atol=tol, rtol=tol)
+    assert len(tleaves) == len(jleaves)
+    if dtype == "float32":
+        for a, b in zip(tleaves, jleaves):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=tol)
+        return
+    jl32, _, jleaves32, _, _, _ = _dense_run(arch, "float32")
+    assert _rel(tl, jl32) <= BF16_MARGIN * _rel(jl, jl32)
+    for a, b, truth in zip(tleaves, jleaves, jleaves32):
+        if a.dtype.kind == "f" and np.abs(truth).max() > 0:
+            assert _rel(a, truth) <= BF16_MARGIN * max(_rel(b, truth),
+                                                       1e-3), (a, b)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_gemma2_ring_cache_of_a_prompt_longer_than_its_window():
+    """gemma2's local layers keep a ring of ``window`` slots: the prompt
+    of 24 fills slots ``pos % 16`` with its last 16 positions, and 8
+    decode steps go on overwriting the oldest; global layers keep every
+    position."""
+    cfg = get_config("gemma2_27b").reduced()
+    assert cfg.window == 16 < DENSE_PROMPT
+    _, _, _, _, js, ts = _dense_run("gemma2_27b", "float32")
+    local, glob = ts["scan"][0], ts["scan"][1]
+    assert [s.mixer for s in cfg.pattern] == ["attn_local", "attn_global"]
+    assert tuple(local["k"].shape[2:3]) == (cfg.window,)
+    end = DENSE_PROMPT + 8
+    want = np.arange(end - cfg.window, end)
+    want = want[np.argsort(want % cfg.window)]
+    for b in range(2):
+        np.testing.assert_array_equal(local["pos"][0, b].numpy(), want)
+        np.testing.assert_array_equal(glob["pos"][0, b].numpy(),
+                                      np.arange(DENSE_CACHE))
+    for a, b in zip(interop.pytree.tree_leaves(ts),
+                    jax.tree_util.tree_leaves(js)):
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_runs_unchanged_through_the_port(arch):
+    """The published config passes the port's support check as it is,
+    and its layer slots give the flash launches ``chip_smoke.py``
+    counts per fused prefill."""
+    cfg = get_config(arch)
+    T._check_supported(cfg)
+    slots = [s.mixer for s in cfg.layer_slots()]
+    assert set(slots) <= {"attn_local", "attn_global"}
+    assert len(slots) == {"gemma2_27b": 46, "gemma3_12b": 48,
+                          "phi4_mini_3_8b": 32}[arch]

@@ -22,6 +22,8 @@ package.
 Tolerance: exact — every comparison here is of counts, tables or bytes.
 """
 import contextlib
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -179,6 +181,30 @@ class TestRealDataPlane:
         t = r.device_table()
         assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
         assert np.array_equal(t.numpy(), r.table)
+
+    def test_driver_and_its_kv_are_freed_without_a_collection(self, engine):
+        """Dropping the simulation frees the driver and every ``SeqKV``
+        at once: no reference cycle (the balancer's window hook, a
+        finished window's collections) keeps them, and their device
+        memory, until the garbage collector runs."""
+        gc.collect()
+        gc.disable()
+        try:
+            sim = RealDecodeSim(n_replicas=4, slots=16, work=(1, 1, 3, 1),
+                                preload=(2, 24), arrival_rate=3.0,
+                                glb_period=4, pipeline_depth=2, seed=1,
+                                engine=engine, transport="device").run(12)
+            d = sim.driver
+            assert d.glb.stats.rebalances > 0
+            # a SeqKV has slots and no weak reference: watch its token
+            kv = [v.token for p in d.group.members
+                  for v in d.kv.handle(p).values()]
+            assert kv
+            refs = [weakref.ref(d)] + [weakref.ref(t) for t in kv]
+            del sim, d, kv
+            assert [r() for r in refs if r() is not None] == []
+        finally:
+            gc.enable()
 
 
 # ---------------------------------------------------------------------------
