@@ -10,7 +10,8 @@ each hand-written kernel against its plain PyTorch version:
   registers and spills of each of its TMA kernel's 8 instantiations
   (all must be read, none may spill); count the tensor-core (``HMMA``)
   instructions in the mlstm library's SASS, whose kernels may not spill
-  either;
+  either; read the registers and spills of the flash backward's 18
+  instantiations (none may spill);
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
@@ -134,11 +135,36 @@ each hand-written kernel against its plain PyTorch version:
   depth, the bf16 main path then runs at full depth with parameters
   drawn in bf16 (finite results, layer 1's key cache fused vs
   composite within 1e-2 in relative L2); the fused prefill launches
-  ``flash_attention`` 32, 48 and 46 times.
+  ``flash_attention`` 32, 48 and 46 times;
+* phase 18: the flash backward (``flash_attention_bwd``) against
+  ``flash_bwd_ref`` over a sweep (head dims 64 and 128, GQA groups 1
+  and 6, causal and not, windows none / 1024 / 0 / -3, softcaps 0 and
+  50, ragged lengths, the models' (B, S, H, D) views; float32,
+  bfloat16, float16): float32 within 1e-4 of the largest gradient
+  element, 16-bit each gradient no further (relative L2) from
+  ``flash_bwd_ref`` on float32 copies than 1.25x the plain version's
+  own 16-bit result, two launches the same bits, the forward's
+  log-sum-exp within 1e-5 of ``flash_ref``'s; then timed at qwen2
+  training's shape (q 2 x 12 x 4096 x 128, bfloat16, causal) beside its
+  bound, ``flash_bwd_ref`` and SDPA's backward;
+* phase 19: qwen2-1.5B training at full width and depth (f32 master
+  weights, ``remat="full"``; the batch from ``ShardedBatches`` over a
+  4-place ``PlaceGroup`` fed by ``TokenSource(seed=0)``).  In float32
+  compute, fused (flash forward + backward kernels) vs composite
+  (autograd through ``flash_ref``) on a 2 x 4096 micro-batch: loss
+  within 1e-4, every gradient leaf and the parameters after one AdamW
+  step within 1e-3 (relative L2); in bfloat16 every fused gradient leaf
+  no further from the float32 run than 1.25x the composite's.  Then the
+  main path: ``build_train_step`` (bf16, ``accum`` 2: 16 384 tokens a
+  step, AdamW lr 1e-3) for 8 steps on one repeated batch with
+  ``StragglerMitigator`` observing each; the loss must fall, each step
+  launches the flash forward 112 times (56 + 56 recomputed) and its
+  backward 56 times; then a ``CheckpointManager`` round trip of the
+  parameters and moments, bit for bit.
 
 The launch counts are set to 0 just before each main path (phases 2-3,
-5, 6, 8, 9, 10, 12, 13, each app of phase 14, and 15-17) and read just
-after; a path that launched none of its kernels fails (MolDyn and
+5, 6, 8, 9, 10, 12, 13, each app of phase 14, 15-17 and 19) and read
+just after; a path that launched none of its kernels fails (MolDyn and
 PlhamJ have no hand-written kernel on their path: their counts are
 recorded, all 0).  Every check raises on failure (a phase logs all its
 comparisons first).  The output ends with each
@@ -2522,6 +2548,448 @@ def phase_serving(report, main_launches, key="qwen2"):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the flash backward against its plain version
+# ---------------------------------------------------------------------------
+# one micro-batch of qwen2-1.5B training: q (2, 12, 4096, 128), k and v
+# (2, 2, 4096, 128), bfloat16, causal
+QWEN_TRAIN_ATTN = (2, 12, 2, 4096, 4096, 128)
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap[, layout]): head dims
+# 64 and 128, GQA groups 1 and 6, windows none, 1024, 0 and -3, softcaps
+# 0 and 50, Sq = Skv and lengths no multiple of the 64-row tile
+FLASH_BWD_SWEEP = [
+    (2, 4, 4, 512, 512, 64, True, None, 0.0),          # group 1
+    (1, 12, 2, 512, 512, 128, False, None, 0.0),       # group 6
+    (1, 12, 2, 1500, 1500, 128, True, 1024, 0.0),      # window 1024
+    (1, 8, 8, 1500, 1500, 64, False, 1024, 50.0),      # and a softcap
+    (1, 12, 2, 777, 777, 128, True, None, 50.0),       # ragged, softcap
+    (1, 6, 6, 300, 300, 64, False, 0, 0.0),            # keys after the row
+    (1, 12, 2, 300, 300, 128, True, 0, 0.0),           # no key: zero grads
+    (1, 12, 2, 300, 300, 128, False, -3, 0.0),
+    (1, 4, 4, 300, 300, 64, True, -3, 0.0),
+    (1, 6, 1, 129, 200, 128, True, None, 0.0),         # Sq < Skv
+    (2, 12, 2, 1000, 1000, 128, True, None, 0.0, "bshd"),  # the models'
+]
+# float32: every gradient element within this share of the largest
+FLASH_BWD_F32_TOL = 1e-4
+# 16-bit: every gradient element within half an output ulp of
+# flash_bwd_ref on float32 copies plus this share of the largest; P or dS
+# rounded to 16 bits inside the kernel lands about 1e-3 beyond half an ulp
+FLASH_BWD_ULP_ATOL = 1e-4
+# the forward's row log-sum-exp against flash_ref's
+FLASH_LSE_TOL = 1e-5
+
+
+def rel_l2(a, b) -> float:
+    b = b.float()
+    return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def half_ulp_excess(got, want, dtype) -> float:
+    """The largest ``|got - want| - ulp(want) / 2`` over the elements, in
+    ``got``'s 16-bit ``dtype``, as a share of ``max|want|``."""
+    import torch
+    _, e = torch.frexp(want)              # |want| in [2^(e-1), 2^e)
+    lo, bits = {"bfloat16": (-125, 9), "float16": (-13, 12)}[dtype]
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(lo) - bits))
+    excess = float(((got.float() - want).abs() - half_ulp).max())
+    return excess / max(float(want.abs().max()), 1e-30)
+
+
+def flash_bwd_check(gate, q, k, v, do, dtype, what, **kw):
+    """The backward kernel on (q, k, v, do) against ``flash_bwd_ref``:
+    float32 within ``FLASH_BWD_F32_TOL`` of the largest gradient element;
+    16-bit, each of dq / dk / dv no further (relative L2) from
+    ``flash_bwd_ref`` on float32 copies than ``BF16_MARGIN`` times the
+    plain version's own 16-bit result is, and every element within half
+    an output ulp of it plus ``FLASH_BWD_ULP_ATOL``; two launches the
+    same bits; the forward's log-sum-exp within ``FLASH_LSE_TOL`` of
+    flash_ref's."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    _, lse_ref = ref.flash_ref(q, k, v, return_lse=True, **kw)
+    live = torch.isfinite(lse_ref)
+    lse_err = float((lse[live] - lse_ref[live]).abs().max()) \
+        if live.any() else 0.0
+    gate.check(torch.equal(live, torch.isfinite(lse))
+               and lse_err <= FLASH_LSE_TOL,
+               f"{what}: forward log-sum-exp off flash_ref's by {lse_err}")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.flash_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                             lse, do.float(), **kw)
+    plain = want if dtype == "float32" else ref.flash_bwd_ref(
+        q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    row = {"dtype": dtype, "lse_max_abs_err": lse_err,
+           "deterministic": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
+    gate.check(row["deterministic"], f"{what}: two launches differ")
+    for name, a, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        scale = float(w.abs().max())
+        err = float((a.float() - p.float()).abs().max())
+        r = {"max_abs_err": err, "max_share": err / max(scale, 1e-30),
+             "rel_l2_vs_f32": rel_l2(a, w),
+             "plain_rel_l2_vs_f32": rel_l2(p, w)}
+        ok = bool(torch.isfinite(a.float()).all())
+        if dtype == "float32":
+            ok = ok and err <= FLASH_BWD_F32_TOL * scale
+        else:
+            r["ulp_excess"] = half_ulp_excess(a, w, dtype)
+            r["plain_ulp_excess"] = half_ulp_excess(p, w, dtype)
+            ok = ok and r["rel_l2_vs_f32"] <= BF16_MARGIN \
+                * r["plain_rel_l2_vs_f32"] + 1e-7 \
+                and r["ulp_excess"] <= FLASH_BWD_ULP_ATOL
+        gate.check(ok, f"{what}: {name} {r}")
+        row[name] = r
+    return row
+
+
+def phase_flash_backward(report):
+    """The sweep, then the training shape: timed beside its bound (2.5x
+    the forward's operations at the bf16 peak), ``flash_bwd_ref`` and
+    SDPA's backward (``torch.autograd.grad`` of its output)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    gate = Gate("flash_backward")
+    sweep = []
+    for dtype in ("float32", "bfloat16", "float16"):
+        for case in FLASH_BWD_SWEEP:
+            q, k, v = flash_inputs(gen, case[:6], dtype, *case[9:])
+            do = flash_inputs(gen, case[:6], dtype, *case[9:])[0]
+            kw = dict(zip(("causal", "window", "softcap"), case[6:9]))
+            row = flash_bwd_check(gate, q, k, v, do, dtype,
+                                  f"{dtype} {case}", **kw)
+            sweep.append(dict(row, case=list(case)))
+            del q, k, v, do
+    report["flash_backward_sweep"] = sweep
+
+    B, Hq, Hkv, S, _, D = QWEN_TRAIN_ATTN
+    q, k, v = flash_inputs(gen, QWEN_TRAIN_ATTN, "bfloat16", "bshd")
+    do = flash_inputs(gen, QWEN_TRAIN_ATTN, "bfloat16", "bshd")[0]
+    train = flash_bwd_check(gate, q, k, v, do, "bfloat16",
+                            "qwen2 training shape", causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    run = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, causal=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_sdpa = F.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=1.0 / D ** 0.5, enable_gqa=True)
+    flops = 5 * fa.attention_flops(B, Hq, S, S, D, causal=True,
+                                   window=None) // 2
+    nbytes = 2 * (4 * q.nelement() + 4 * k.nelement()) + 4 * lse.nelement()
+    bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    res = {
+        "shape": f"q ({B}, {Hq}, {S}, {D}), k/v ({B}, {Hkv}, {S}, {D}) "
+                 "bfloat16, causal, (B, S, H, D) views",
+        "ms": cuda_ms(run, reps=5, warm=1),
+        "plain_ms": cuda_ms(lambda: ref.flash_bwd_ref(
+            q, k, v, out, lse, do, causal=True), reps=3, warm=1),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            o_sdpa, leaves, do, retain_graph=True)),
+        "library_call": "torch.autograd.grad(F.scaled_dot_product_attention"
+                        "(q, k, v, is_causal=True, enable_gqa=True), "
+                        "(q, k, v), do)",
+        "bound_ms": bound * 1e3, "flops": flops, "bytes": nbytes,
+        "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
+        >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "max_abs_err": max(train[n]["max_abs_err"] for n in ("dq", "dk",
+                                                             "dv")),
+        "check": train}
+    res["tflops"] = flops / res["ms"] / 1e9
+    res["sweep_max_f32_share"] = max(
+        r[n]["max_share"] for r in sweep if r["dtype"] == "float32"
+        for n in ("dq", "dk", "dv"))
+    res["sweep_max_lse_err"] = max(r["lse_max_abs_err"] for r in sweep)
+    res["sweep_max_ulp_excess"] = max(
+        r[n]["ulp_excess"] for r in sweep if r["dtype"] != "float32"
+        for n in ("dq", "dk", "dv"))
+    res["sweep_max_16bit_ratio"] = max(
+        r[n]["rel_l2_vs_f32"] / max(r[n]["plain_rel_l2_vs_f32"], 1e-30)
+        for r in sweep if r["dtype"] != "float32" for n in ("dq", "dk", "dv")
+        if r[n]["plain_rel_l2_vs_f32"] > 0)
+    log(f"[flash backward] {res['ms']:.3f} ms, {res['tflops']:.1f} TFLOP/s "
+        f"(bound {res['bound_ms']:.4f}, plain {res['plain_ms']:.3f}, sdpa "
+        f"backward {res['library_ms']:.3f}); sweep f32 share "
+        f"{res['sweep_max_f32_share']:.2e}, 16-bit ratio "
+        f"{res['sweep_max_16bit_ratio']:.3f}, half-ulp excess "
+        f"{res['sweep_max_ulp_excess']:.2e}, lse {res['sweep_max_lse_err']}")
+    report["flash_backward"] = res
+    del q, k, v, do, out, lse, leaves, o_sdpa
+    torch.cuda.empty_cache()
+    gate.close()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 19: qwen2-1.5B training
+# ---------------------------------------------------------------------------
+# micro-batches of 2 x 4096 tokens (the reference's train_4k length), 2
+# accumulated a step: 16 384 tokens; 8 steps on one repeated batch
+TRAIN = {"micro": 2, "accum": 2, "seq": 4096, "steps": 8, "places": 4,
+         "lr": 1e-3}
+TRAIN_LOSS_RTOL = 1e-4   # f32 compute: fused vs composite loss
+TRAIN_GRAD_RL2 = 1e-3    # ... every gradient leaf, and the parameters after
+                         # one AdamW step, in relative L2
+# a leaf whose exact gradient is 0 (the key bias: it adds q . b to every
+# score of a row, which the softmax cancels) is held to the whole
+# gradient's norm instead of its own
+ZERO_GRAD_LEAF = "['wk']['b']"
+TRAIN_CKPT = ROOT / "build" / "smoke_ckpt"
+
+
+def train_batch(cfg):
+    """The global batch the loop repeats: ``ShardedBatches`` over a
+    4-place ``PlaceGroup`` fed by ``TokenSource(seed=0)``, every place's
+    ``local_batch`` concatenated in place order (which must equal the
+    reference's ``make_global_batch``), as (accum, micro, seq) numpy."""
+    import numpy as np
+    from repro_torch.core import PlaceGroup
+    from repro_torch.data import ShardedBatches, TokenSource
+    from repro_torch.data import make_global_batch
+
+    n = TRAIN["micro"] * TRAIN["accum"]
+    group = PlaceGroup(TRAIN["places"], device=DEV)
+    src = TokenSource(cfg.vocab_size, TRAIN["seq"], seed=0)
+    shards = ShardedBatches(group, n, src)
+    parts = [shards.local_batch(p) for p in group.members]
+    batch = {k: np.concatenate([b[k] for b in parts])
+             for k in ("tokens", "labels")}
+    want = make_global_batch(src, 0, 0, n)
+    require(all(np.array_equal(batch[k], want[k]) for k in batch),
+            "ShardedBatches' rows differ from make_global_batch's")
+    shape = (TRAIN["accum"], TRAIN["micro"], TRAIN["seq"])
+    return shards, {k: v.reshape(shape) for k, v in batch.items()}
+
+
+def train_grads(cfg, params, batch, impl):
+    """(loss, gradient leaves) of ``train_loss`` at ``params``."""
+    import torch
+    from repro_torch.models import Parallel
+    from repro_torch.models import transformer as T
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(params)
+    live = [x.detach().requires_grad_() for x in leaves]
+    loss, _ = T.train_loss(pytree.tree_unflatten(live, spec), cfg,
+                           Parallel(), batch, impl=impl)
+    grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), list(grads)
+
+
+def leaf_distances(paths, got, want, total):
+    """Relative L2 of each leaf of ``got`` from ``want``; a zero-gradient
+    leaf against ``total`` (the whole of ``want``'s norm)."""
+    out = {}
+    for path, a, b in zip(paths, got, want):
+        if ZERO_GRAD_LEAF in path:
+            out[path] = float((a.float() - b.float()).norm()) / total
+        else:
+            out[path] = rel_l2(a, b)
+    return out
+
+
+def phase_train(report, main_launches):
+    """qwen2-1.5B training at full width and depth.  The gates at
+    ``gate_depth`` first, with f32 master weights and ``remat="full"``:
+    f32 compute, fused (flash forward + backward kernels) vs composite
+    (autograd through ``flash_ref``): loss within ``TRAIN_LOSS_RTOL``,
+    every gradient leaf and the parameters after one AdamW step within
+    ``TRAIN_GRAD_RL2``; bf16 compute, every fused gradient leaf no
+    further from the f32 composite run than ``BF16_MARGIN`` times the
+    bf16 composite's.  Then the main path, counted: ``build_train_step``
+    (bf16 compute, ``accum`` 2, AdamW lr 1e-3 without warmup) for 8 steps
+    on one repeated batch, ``StragglerMitigator`` observing each; the
+    loss must fall; then a ``CheckpointManager`` round trip of the
+    parameters and moments, bit for bit."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import Parallel, zoo
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime import StragglerMitigator
+    from repro_torch.train import build_train_step
+    from torch.utils import _pytree as pytree
+
+    cfg = lm_config("qwen2")
+    depth = gate_depth(cfg)
+    require(depth == cfg.n_layers, f"qwen2 training gate at depth {depth}")
+    cfg = dataclasses.replace(cfg, remat="full")
+    gate = Gate("qwen2_train")
+    shards, batch = train_batch(cfg)
+    micro = {k: torch.from_numpy(v[0]).to(DEV) for k, v in batch.items()}
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=0)
+    out = {"config": cfg.name, "remat": cfg.remat, "gate_depth": depth,
+           "micro_batch": [TRAIN["micro"], TRAIN["seq"]],
+           "accum": TRAIN["accum"], "steps": TRAIN["steps"]}
+    times = {}
+
+    # f32 compute: the kernels against the plain versions
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    master = zoo.init_params(cfg, SEED, device=DEV)
+    paths = [pytree.keystr(p) for p, _ in
+             pytree.tree_flatten_with_path(master)[0]]
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    loss_f, g_f = train_grads(c32, master, micro, "fused")
+    loss_c, g_c = train_grads(c32, master, micro, "composite")
+    total = float(torch.sqrt(sum(g.float().square().sum() for g in g_c)))
+    d32 = leaf_distances(paths, g_f, g_c, total)
+    gate.check(abs(loss_f - loss_c) <= TRAIN_LOSS_RTOL * abs(loss_c),
+               f"f32 loss: fused {loss_f} vs composite {loss_c}")
+    worst = max(d32, key=d32.get)
+    gate.check(d32[worst] <= TRAIN_GRAD_RL2,
+               f"f32 gradient {worst}: relative L2 {d32[worst]}")
+    spec = pytree.tree_structure(master)
+
+    def one_step(grads):
+        p = pytree.tree_map(torch.clone, master)
+        state = adamw_init(p, opt)
+        adamw_update(pytree.tree_unflatten(grads, spec), state, p, opt)
+        return pytree.tree_leaves(p)
+
+    p_f = one_step(g_f)
+    del g_f
+    p_c = one_step(g_c)
+    # the zero-gradient leaf's first AdamW step is ~lr times the sign of
+    # rounding noise in either path: left out
+    dstep = {path: rel_l2(a, b) for path, a, b in zip(paths, p_f, p_c)
+             if ZERO_GRAD_LEAF not in path}
+    dmove = {path: rel_l2(a - m, b - m) for path, a, b, m in zip(
+        paths, p_f, p_c, pytree.tree_leaves(master))
+        if ZERO_GRAD_LEAF not in path}
+    worst_step = max(dstep, key=dstep.get)
+    gate.check(dstep[worst_step] <= TRAIN_GRAD_RL2,
+               f"parameters after one AdamW step: {worst_step} "
+               f"{dstep[worst_step]}")
+    del p_f, p_c
+    out["float32"] = {
+        "loss": loss_f, "composite_loss": loss_c,
+        "loss_rel_err": abs(loss_f - loss_c) / abs(loss_c),
+        "grad_rel_l2_max": d32[worst], "grad_rel_l2_worst_leaf": worst,
+        "grad_rel_l2": d32, "grad_norm": total,
+        "step_params_rel_l2_max": dstep[worst_step],
+        "step_params_worst_leaf": worst_step,
+        "step_update_rel_l2_max": max(dmove.values()),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    times["float32_s"] = time.perf_counter() - t0
+    log(f"[qwen2_train f32] loss {loss_f} vs {loss_c}; worst gradient "
+        f"{worst} {d32[worst]:.3e}; one step {max(dstep.values()):.3e} "
+        f"(update {max(dmove.values()):.3e})")
+
+    # bf16 compute: both paths against the f32 composite gradients
+    t0 = time.perf_counter()
+    loss16_f, g16_f = train_grads(cfg, master, micro, "fused")
+    loss16_c, g16_c = train_grads(cfg, master, micro, "composite")
+    df = leaf_distances(paths, g16_f, g_c, total)
+    dc = leaf_distances(paths, g16_c, g_c, total)
+    ratio = {p: df[p] / max(dc[p], 1e-30) for p in paths}
+    bad = {p: (df[p], dc[p]) for p in paths
+           if not df[p] <= BF16_MARGIN * dc[p] + 1e-7}
+    gate.check(not bad and all(bool(torch.isfinite(g).all())
+                               for g in g16_f),
+               f"bf16 gradients further from the f32 run than the "
+               f"composite's (x{BF16_MARGIN}): {bad}")
+    out["bfloat16_gate"] = {
+        "loss": loss16_f, "composite_loss": loss16_c,
+        "grad_rel_l2_vs_f32_max": max(df.values()),
+        "composite_grad_rel_l2_vs_f32_max": max(dc.values()),
+        "ratio_max": max(ratio.values()),
+        "ratio_worst_leaf": max(ratio, key=ratio.get),
+        "grad_rel_l2_vs_f32": df, "composite_grad_rel_l2_vs_f32": dc}
+    times["bfloat16_gate_s"] = time.perf_counter() - t0
+    log(f"[qwen2_train bf16] loss {loss16_f} vs {loss16_c}; distance to "
+        f"f32 {max(df.values()):.3e} vs composite {max(dc.values()):.3e}, "
+        f"worst ratio {max(ratio.values()):.3f}")
+    del g_c, g16_f, g16_c, micro
+
+    # the main path: 8 steps of the train step, counted from zero
+    step, _, _ = build_train_step(cfg, Parallel(), opt,
+                                  accum=TRAIN["accum"], impl="fused")
+    state = adamw_init(master, opt)
+    mitigator = StragglerMitigator(TRAIN["places"], period=2)
+    params = master
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cuda_build.reset_launch_counts()
+    for _ in range(TRAIN["steps"]):
+        s0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))    # synchronizes
+        walls.append(time.perf_counter() - s0)
+        loads = shards.loads()
+        mitigator.observe_and_maybe_rebalance(
+            walls[-1] * loads / loads.sum(), shards)
+    torch.cuda.synchronize()
+    main_launches.update(cuda_build.launch_counts)
+    times["train_s"] = time.perf_counter() - t0
+    n = TRAIN["steps"]
+    per_step = {k: v / n for k, v in main_launches.items() if v}
+    # steps 2-8 (the first is the warm-up): all their time over all
+    # their work, so a stall in any of them shows
+    ms = sum(walls[1:]) / (n - 1) * 1e3
+    tokens = TRAIN["micro"] * TRAIN["accum"] * TRAIN["seq"]
+    out["bfloat16"] = {
+        "losses": losses, "step_ms": [w * 1e3 for w in walls],
+        "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+        "median_ms_per_step": statistics.median(walls[1:]) * 1e3,
+        "tokens_per_step": tokens,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": per_step,
+        "grad_norm": float(metrics["grad_norm"]),
+        "straggler_moves": mitigator.moves_applied}
+    gate.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+               f"the loss did not fall over {n} steps: {losses}")
+    want = {"flash_attention": 4 * cfg.n_layers,
+            "flash_attention_bwd": 2 * cfg.n_layers}
+    gate.check(all(per_step.get(k) == v for k, v in want.items()),
+               f"launches per step {per_step}, not {want}")
+    gate.check(mitigator.moves_applied == 0, "the even cluster moved rows")
+    log(f"[qwen2_train] {ms:.1f} ms/step, "
+        f"{out['bfloat16']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['bfloat16']['peak_mem_bytes'] / 2**30:.2f} GiB, losses "
+        f"{losses}, launches per step {per_step}")
+
+    # checkpoint round trip of the parameters and the moments
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    mgr = CheckpointManager(TRAIN_CKPT, keep=1, n_shards=TRAIN["places"])
+    tree = {"params": params, "opt": state}
+    mgr.save(n, tree)
+    saved = time.perf_counter() - t0
+    restored, manifest = mgr.restore(tree)
+    same = manifest["step"] == n and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(restored), pytree.tree_leaves(tree)))
+    gate.check(same, "checkpoint round trip not bit for bit")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    out["checkpoint"] = {"save_s": saved,
+                         "restore_s": time.perf_counter() - t0 - saved,
+                         "bytes": sum(x.nelement() * x.element_size()
+                                      for x in pytree.tree_leaves(tree)),
+                         "bit_for_bit": same}
+    times["checkpoint_s"] = time.perf_counter() - t0
+    out["times"] = times
+    report["qwen2_train"] = out
+    del restored, tree, params, state, master
+    torch.cuda.empty_cache()
+    gate.close()
+
+
+# ---------------------------------------------------------------------------
 def profile_pass(run, path):
     """``run()`` once under torch.profiler: device time by kernel, and
     the device's busy share of the wall time."""
@@ -2558,7 +3026,8 @@ def profile_pass(run, path):
 def profile_main_paths(shift, path):
     """Each main path once under the profiler: the windows and the
     device steal loop; each model's bf16 prefill through its kernels and
-    8 decode steps; 8 rounds of each elastic serving runtime."""
+    8 decode steps; 8 rounds of each elastic serving runtime; the
+    paper's workloads; one qwen2-1.5B train step."""
     import torch
     from repro_torch.models import Parallel
     from repro_torch.models import transformer as T
@@ -2593,6 +3062,9 @@ def profile_main_paths(shift, path):
         del params, tokens
         torch.cuda.empty_cache()
     out.update(profile_apps(named, out))
+    free_memory("profile qwen2_train", out)
+    out["qwen2_train"] = profile_pass(train_step_once(), named("qwen2_train"))
+    torch.cuda.empty_cache()
     for key in SERVE_ROUNDS:
         tag = "serving" if key == "qwen2" else f"{key}_serving"
         engine = DecodeEngine(lm_config(key), s_cache=1024, max_batch=8,
@@ -2607,6 +3079,27 @@ def profile_main_paths(shift, path):
         del engine
         torch.cuda.empty_cache()
     return out
+
+
+def train_step_once():
+    """One qwen2-1.5B train step of phase 19's main path (a first step
+    already taken, so the allocator and the kernels are warm), as a
+    closure for the profiler."""
+    import dataclasses
+
+    from repro_torch.models import Parallel, zoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(lm_config("qwen2"), remat="full")
+    _, batch = train_batch(cfg)
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=0)
+    step, _, _ = build_train_step(cfg, Parallel(), opt,
+                                  accum=TRAIN["accum"], impl="fused")
+    params = zoo.init_params(cfg, SEED, device=DEV)
+    state = adamw_init(params, opt)
+    step(params, state, batch)
+    return lambda: step(params, state, batch)
 
 
 def profile_apps(named, report):
@@ -2674,6 +3167,39 @@ def flash_build(build_log, so_path):
     return out
 
 
+def flash_bwd_build(build_log):
+    """What phase 0 built for the flash backward: ptxas' registers and
+    spills of each of its kernels (delta, dK/dV, dQ) x (f32, bf16, f16) x
+    (D 64, 128); none may spill."""
+    import re
+
+    kernels, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for \S*?\d(flash_bwd_[a-z]+)I"
+                      r"(\w+?)Li(\d+)E", line)
+        if m:
+            dt = "f16" if "half" in m.group(2) else \
+                "bf16" if "bfloat16" in m.group(2) else "f32"
+            cur = f"{m.group(1)} {dt} D={m.group(3)}"
+            kernels[cur] = {}
+        elif cur and "spill stores" in line:
+            kernels[cur]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif cur and "Used" in line:
+            kernels[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    log(f"[build] flash backward: {kernels}")
+    want = {f"flash_bwd_{k} {t} D={d}" for k in ("delta", "dkdv", "dq")
+            for t in ("f32", "bf16", "f16") for d in (64, 128)}
+    require(set(kernels) == want and all(
+        k.get("spill_bytes") == 0 and "registers" in k
+        for k in kernels.values()),
+        f"flash backward: ptxas must report 0 spill bytes and the registers "
+        f"of each of {sorted(want)}; the build log gave {kernels}")
+    return kernels
+
+
 def mlstm_build(build_log, so_path):
     """What phase 0 built for mlstm: ``HMMA`` (``mma.sync``) instructions
     in the library's SASS, and ptxas' spills for every kernel
@@ -2709,6 +3235,14 @@ def mlstm_build(build_log, so_path):
             f"mlstm: ptxas must report 0 spill bytes for every kernel; the "
             f"build log gave {spills}")
     return out
+
+
+def brief(rec):
+    """``rec`` without its per-leaf tables (they stay in ``--out``)."""
+    if isinstance(rec, dict):
+        return {k: brief(v) for k, v in rec.items()
+                if not k.endswith(("grad_rel_l2", "grad_rel_l2_vs_f32"))}
+    return rec
 
 
 def smi_line() -> str:
@@ -2755,8 +3289,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = smi_line()
-    libraries = (rc.LIBRARY, fa.LIBRARY, rl.LIBRARY, ml.LIBRARY,
-                 md.LIBRARY)
+    libraries = (rc.LIBRARY, fa.LIBRARY, fa.BWD_LIBRARY, rl.LIBRARY,
+                 ml.LIBRARY, md.LIBRARY)
     with Phase("build", report):
         paths = cuda_build.build_all(libraries)
         for lib in libraries:
@@ -2769,11 +3303,14 @@ def main(argv=None) -> int:
                                         paths[libraries.index(fa.LIBRARY)])
     report["mlstm_build"] = mlstm_build(ml.LIBRARY.build_log,
                                         paths[libraries.index(ml.LIBRARY)])
+    report["flash_bwd_build"] = flash_bwd_build(fa.BWD_LIBRARY.build_log)
 
     with Phase("kernels", report):
         times = phase_kernels(args.shift, report)
     with Phase("flash_kernel", report):
         times["flash_attention"] = phase_flash(report)
+    with Phase("flash_backward", report):
+        times["flash_attention_bwd"] = phase_flash_backward(report)
     with Phase("recurrence_kernels", report):
         times.update(phase_recurrence_kernels(report))
     with Phase("moe_kernels", report):
@@ -2842,6 +3379,11 @@ def main(argv=None) -> int:
         free_memory(key, report)
         with Phase(f"{key}_prefill_decode", report):
             phase_lm(key, report, launches[f"{key}_prefill"])
+    # main path 15 (phase 19): qwen2-1.5B training, counted inside
+    launches["qwen2_train"] = {}
+    free_memory("qwen2_train", report)
+    with Phase("qwen2_train", report):
+        phase_train(report, launches["qwen2_train"])
     report["launches"] = launches
     if args.profile:
         with Phase("profile", report):
@@ -2880,7 +3422,9 @@ def main(argv=None) -> int:
         "qwen2", "serving", "recurrentgemma", "xlstm",
         "recurrentgemma_serving", "deepseek", "deepseek_serving",
         "kmeans", "moldyn", "plham", "phi4", "gemma3", "gemma2",
-        "flash_d192", "flash_d256", "flash_build", "mlstm_build")}
+        "flash_d192", "flash_d256", "flash_build", "mlstm_build",
+        "flash_backward", "flash_bwd_build")}
+        | {"qwen2_train": brief(report["qwen2_train"])}
         | {"launches": launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,10 @@ seed from it without either side importing the other:
   and tuples, stacked ``scan`` leaves with a leading period axis) with
   numpy leaves — what ``jax.tree_util.tree_map(np.asarray, params)``
   gives.  The port keeps the same leaf paths and shapes (a dense weight
-  is ``(d_in, d_out)`` on both sides), so the converter is a copy.
+  is ``(d_in, d_out)`` on both sides), so the converter is a copy;
+* AdamW state: ``{"m", "v", "count"}`` with the parameters' tree under
+  each moment (f32 or bfloat16 leaves, or an int8 ``{"q", "scale"}``
+  pair per parameter) and a scalar int32 step count.
 
 bfloat16 has no numpy dtype here: its bytes cross as a ``uint16`` view,
 and a bfloat16 array of an extension dtype (``dtype.name ==
@@ -31,7 +34,8 @@ __all__ = ["array_state_from_numpy", "array_state_to_numpy",
            "map_state_from_numpy", "map_state_to_numpy",
            "tensor_from_numpy", "tensor_to_numpy",
            "params_from_numpy", "params_to_numpy",
-           "decode_state_from_numpy", "decode_state_to_numpy"]
+           "decode_state_from_numpy", "decode_state_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -157,4 +161,19 @@ def decode_state_from_numpy(cfg, tree, *, device):
 def decode_state_to_numpy(state):
     """A decode state → numpy pytree (bfloat16 leaves as ``uint16``
     views)."""
+    return _tree_to_numpy(state)
+
+
+def opt_state_from_numpy(tree, *, device):
+    """An AdamW state on ``device`` from the JAX package's
+    ``adamw_init`` / ``adamw_update`` state exported as numpy (the int8
+    ``{"q", "scale"}`` leaves and the 0-d step count included)."""
+    if set(tree) != {"m", "v", "count"}:
+        raise ValueError(f"an AdamW state has m, v and count, got "
+                         f"{sorted(tree)}")
+    return _tree_from_numpy(tree, device)
+
+
+def opt_state_to_numpy(state):
+    """An AdamW state → the reference's pytree with numpy leaves."""
     return _tree_to_numpy(state)

@@ -68,7 +68,8 @@
 //   each) fit in shared memory (80, 160, 144 and 192 KB) and a
 //   consumer thread holds O (D / 2 floats), S (BK / 2) and P hi + lo
 //   (BK / 2 registers) within 240 registers.
-// * Epilogue: O / l where l > 0, staged through the warpgroup's own rows
+// * Epilogue: O / l where l > 0 (and, when asked, the row log-sum-exp
+//   (m + log2 l) ln 2 for the backward), staged through the warpgroup's own rows
 //   of the Q tile (128-byte swizzled, no bank conflicts) and written
 //   with coalesced 16-byte stores.
 //
@@ -136,6 +137,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;  // contiguous (B, Hq, Sq, D)
+  float* lse;  // contiguous (B, Hq, Sq) row log-sum-exp, or null: no write
   long long B, Hq, Hkv, Sq, Skv;
   long long qsb, qsh, qss;  // element strides; the last axis is unit
   long long ksb, ksh, kss;
@@ -299,6 +301,9 @@ flash_fwd_kernel(const Params p) {
     const long long row = q0 + 4 * ty + i;
     if (row >= p.Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 1.f;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(b * p.Hq + h) * p.Sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       oh[row * D + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
@@ -311,6 +316,7 @@ flash_fwd_kernel(const Params p) {
 constexpr int kTmaBQ = 128;       // query rows per CTA: 2 consumer warpgroups
 constexpr int kTmaThreads = 384;  // producer warpgroup + 2 consumers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct TmaTile {
@@ -782,6 +788,14 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = l[r] > 0.f ? 1.f / l[r] : 1.f;
     }
+    // the row log-sum-exp for the backward, from the log2 domain
+    if (p.lse != nullptr && tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (r0 + 8 * r < p.Sq)
+          p.lse[static_cast<long long>(bh) * p.Sq + r0 + 8 * r] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+    }
 #pragma unroll
     for (int c = 0; c < C::kPanels; ++c)
 #pragma unroll
@@ -964,12 +978,17 @@ int dispatch_tc(const Params& p, long long D, cudaStream_t st) {
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a shape or dtype the kernel
-// does not take), or -CUresult when a TMA tensor map fails to encode.
+// dtype: 0 float32, 1 bfloat16, 2 float16.  ``lse``, when not null,
+// receives each row's natural-log log-sum-exp of its kept scores,
+// (B, Hq, Sq) float32, -inf for a row that keeps no key: what the
+// backward (flash_attention_bwd.cu) recomputes P from.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
+// or dtype the kernel does not take), or -CUresult when a TMA tensor map
+// fails to encode.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int dtype, long long B, long long Hq,
-                        long long Hkv, long long Sq, long long Skv,
+                        void* out, float* lse, int dtype, long long B,
+                        long long Hq, long long Hkv, long long Sq,
+                        long long Skv,
                         long long D, long long qsb, long long qsh,
                         long long qss, long long ksb, long long ksh,
                         long long kss, long long vsb, long long vsh,
@@ -983,7 +1002,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   // j > i + Skv never holds, so a window <= -Skv keeps none
   if (window > Sq) window = Sq;
   if (window < -Skv) window = -Skv;
-  Params p{q, k, v, out, B, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
+  Params p{q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
            vsb, vsh, vss, sm_scale, causal, window, softcap};
   const auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

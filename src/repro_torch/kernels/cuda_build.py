@@ -25,7 +25,8 @@ import torch
 from typing import Callable
 
 __all__ = ["CudaLibrary", "build_all", "launch_counts",
-           "reset_launch_counts", "counted", "cuda_stream"]
+           "reset_launch_counts", "counted", "cuda_stream",
+           "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
@@ -58,6 +59,19 @@ def counted(name: str) -> None:
     # depth-2 windows launch from their background delivery thread
     with _COUNT_LOCK:
         launch_counts[name] += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward
+    yet: its output, written through ``ctypes``, carries no
+    ``grad_fn``, so the gradient of everything before it would be cut
+    without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (ROADMAP.md queue 1, the "
+            "training slices): call it under torch.no_grad() or on "
+            "tensors that do not require grad")
 
 
 # ---------------------------------------------------------------------------

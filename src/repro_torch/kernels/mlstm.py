@@ -36,7 +36,7 @@ import math
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted, cuda_stream
+from .cuda_build import CudaLibrary, counted, cuda_stream, refuse_grad
 
 __all__ = ["mlstm_chunkwise", "mlstm_flops", "tensor_core_route",
            "scratch_floats", "KERNELS", "LIBRARY", "SOURCE", "CHUNK",
@@ -113,6 +113,7 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate):
     m (BH,)) in float32)."""
     if q.device.type == "cpu":
         return ref.mlstm_ref(q, k, v, i_gate, f_gate)
+    refuse_grad("mlstm_chunkwise", q, k, v, i_gate, f_gate)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise: tensors on {q.device} are not "
                          "supported")

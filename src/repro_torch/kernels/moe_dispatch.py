@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted, cuda_stream
+from .cuda_build import CudaLibrary, counted, cuda_stream, refuse_grad
 
 __all__ = ["gather_rows", "moe_combine", "KERNELS", "LIBRARY", "SOURCE"]
 
@@ -59,6 +59,7 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns (M, D) in ``x.dtype``."""
     if x.device.type == "cpu":
         return ref.gather_rows_ref(x, idx)
+    refuse_grad("gather_rows", x)
     _check_cuda("gather_rows", x, idx)
     if x.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"gather_rows needs x (N, D) and idx (M,), got "
@@ -91,6 +92,7 @@ def moe_combine(y: torch.Tensor, slots: torch.Tensor,
     (T, K) float32.  Returns (T, D) in ``y.dtype``."""
     if y.device.type == "cpu":
         return ref.moe_combine_ref(y, slots, weights)
+    refuse_grad("moe_combine", y, weights)
     _check_cuda("moe_combine", y, slots, weights)
     if y.dim() != 2 or slots.dim() != 2 \
             or tuple(weights.shape) != tuple(slots.shape):

@@ -13,6 +13,11 @@ device and to ``composite`` otherwise — as the JAX ``auto`` picks Pallas on a 
 Under ``fused`` a CPU tensor computes the kernel's plain version (the
 CPU parity vehicle); a CUDA tensor launches the kernel or raises.
 
+Autograd: the flash kernel has a hand-written backward
+(``kernels/flash_attention.py``'s ``FlashAttention``); the other model
+kernels have none yet and raise under autograd on a CUDA tensor, where
+``composite`` (their plain versions) trains instead.
+
 Select with ``repro_torch.kernels.ops.set_backend("auto"|"fused"|
 "composite")`` or per call via ``impl=``; the
 ``REPRO_TORCH_KERNEL_BACKEND`` environment variable seeds the initial

@@ -2,7 +2,8 @@
 
 The port of ``repro.kernels.ref``: ``attention_ref`` and ``flash_ref``
 (what ``csrc/flash_attention.cu`` computes, up to the order of f32
-sums), the recurrences ``rg_lru_ref`` and ``mlstm_ref`` (what
+sums) and ``flash_bwd_ref``, its gradient (what
+``csrc/flash_attention_bwd.cu`` computes), the recurrences ``rg_lru_ref`` and ``mlstm_ref`` (what
 ``csrc/rg_lru.cu`` and ``csrc/mlstm.cu`` compute, step by step where the
 kernels fuse or chunk), the MoE dispatch's ``gather_rows_ref`` and
 ``moe_combine_ref`` (what ``csrc/moe_dispatch.cu`` computes: the gather
@@ -23,8 +24,8 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "flash_ref", "rg_lru_ref", "mlstm_ref",
-           "gather_rows_ref", "moe_combine_ref",
+__all__ = ["attention_ref", "flash_ref", "flash_bwd_ref", "rg_lru_ref",
+           "mlstm_ref", "gather_rows_ref", "moe_combine_ref",
            "reloc_encode_pack_ref", "reloc_pack_rows_ref",
            "reloc_decode_rows_ref"]
 
@@ -70,7 +71,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
 
 
 def flash_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
-              sm_scale=None, block_q=128):
+              sm_scale=None, block_q=128, return_lse=False):
     """Blocked attention in plain PyTorch — the ``composite`` path of
     ``ops.attention`` and the plain version of the flash kernel.
 
@@ -82,7 +83,9 @@ def flash_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
     stay in the mask; here that case spans every key, as its kernels
     and ``attention_ref`` do.)  GQA heads are grouped against their kv head (no
     repeat of K and V).  Numerics match ``attention_ref``: f32 scores
-    and sums, output in ``q.dtype``."""
+    and sums, output in ``q.dtype``.  ``return_lse`` also returns each
+    row's log-sum-exp of its kept scores, (B, Hq, Sq) f32, ``-inf``
+    for a row that keeps no key (what the kernel hands its backward)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -93,6 +96,8 @@ def flash_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
     k_span = (window + block_q) if use_window else Skv
     kf, vf = k.float(), v.float()
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     for q0 in range(0, Sq, block_q):
         q1 = min(Sq, q0 + block_q)
         if use_window:
@@ -115,7 +120,63 @@ def flash_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
         l = p.sum(dim=-1, keepdim=True)
         o = torch.einsum("bkgqs,bksd->bkgqd", p, vv) / l.clamp_min(1e-20)
         out[:, :, q0:q1] = o.reshape(B, Hq, q1 - q0, D).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, :, q0:q1] = (m + torch.log(l)).reshape(B, Hq, q1 - q0)
+    return (out, lse) if return_lse else out
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                  softcap=0.0, sm_scale=None, block_q=128):
+    """The plain backward of :func:`flash_ref` (what
+    ``csrc/flash_attention_bwd.cu`` computes, up to the order of f32
+    sums), FlashAttention-2's gradient from the forward's output ``o``
+    and row log-sum-exp ``lse`` (``flash_ref(..., return_lse=True)``):
+
+      P = exp(x - lse) on kept pairs, D = rowsum(do * o),
+      dx = P (do v^T - D), ds = sm_scale dx (1 - (x / softcap)^2),
+      dq = ds k, dk = ds^T q, dv = P^T do
+
+    in f32, blocked over q like ``flash_ref``.  A row with no kept key
+    (``lse`` = -inf) gives zero gradient; dk and dv of a kv head sum over
+    the q-heads of its group.  Returns (dq, dk, dv) in the input
+    dtypes."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    group = Hq // Hkv
+    block_q = max(1, min(block_q, Sq))
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * o.float()).sum(-1)                 # (B, Hq, Sq)
+    dq = torch.empty((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    cols = torch.arange(Skv, device=q.device)[None, :]
+    for q0 in range(0, Sq, block_q):
+        q1 = min(Sq, q0 + block_q)
+        n = q1 - q0
+        qb = q[:, :, q0:q1].float().reshape(B, Hkv, group, n, D)
+        dob = do[:, :, q0:q1].float().reshape(B, Hkv, group, n, D)
+        lb = lse[:, :, q0:q1].reshape(B, Hkv, group, n, 1)
+        db = delta[:, :, q0:q1].reshape(B, Hkv, group, n, 1)
+        x = torch.einsum("bkgqd,bksd->bkgqs", qb, kf) * sm_scale
+        if softcap > 0.0:
+            t = torch.tanh(x / softcap)
+            x = softcap * t
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        live = torch.isfinite(lb)
+        keep = _mask(rows, cols, causal=causal, window=window) & live
+        p = torch.exp(x - torch.where(live, lb, torch.zeros_like(lb)))
+        p = torch.where(keep, p, torch.zeros_like(p))
+        dp = torch.einsum("bkgqd,bksd->bkgqs", dob, vf)
+        ds = p * (dp - db) * sm_scale
+        if softcap > 0.0:
+            ds = ds * (1.0 - t * t)
+        dq[:, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) \
+            .reshape(B, Hq, n, D)
+        dk += torch.einsum("bkgqs,bkgqd->bksd", ds, qb)
+        dv += torch.einsum("bkgqs,bkgqd->bksd", p, dob)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

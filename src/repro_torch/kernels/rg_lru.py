@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import ref
-from .cuda_build import CudaLibrary, counted, cuda_stream
+from .cuda_build import CudaLibrary, counted, cuda_stream, refuse_grad
 
 __all__ = ["rg_lru", "KERNELS", "LIBRARY", "SOURCE"]
 
@@ -48,6 +48,7 @@ def rg_lru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     Returns (h_seq (B, S, D) in ``x.dtype``, h_last (B, D) float32)."""
     if x.device.type == "cpu":
         return ref.rg_lru_ref(x, a, h0)
+    refuse_grad("rg_lru", x, a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"rg_lru: tensors on {x.device} are not supported")
     if x.dim() != 3 or tuple(a.shape) != tuple(x.shape):

@@ -14,8 +14,16 @@ periods becomes a Python loop over ``params["scan"][j][i]`` views.
 
 Encoder-decoder configs, M-RoPE and multi-token prediction raise
 ``NotImplementedError`` (ROADMAP.md queue 1); MoE runs without a mesh
-only (``moe_forward_dense``); ``train_loss`` / ``lm_loss`` wait for the
-training slice.
+only (``moe_forward_dense``).  ``train_loss`` / ``lm_loss`` are the
+reference's ``mesh=None`` branch: the vocab loss in ``cfg.loss_chunk``
+chunks, each under non-reentrant ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``), and ``cfg.remat`` puts each scanned
+period under checkpointing (``"full"``) or saves only the outputs of
+its matrix products with no batch dims (``"dots"``, a selective
+checkpoint policy).  Autograd differentiates through the flash
+kernel's :class:`~repro_torch.kernels.flash_attention.FlashAttention`;
+the recurrent and MoE kernels have no backward yet and raise under
+autograd on the card.
 
 Two departures from a line-by-line copy, neither of which changes a
 result:
@@ -33,11 +41,14 @@ result:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import _pytree as pytree
+from torch.utils import checkpoint as ckpt
 
 from .attention import (attn_attend_cache, attn_decode_project, attn_forward,
                         attn_init)
@@ -55,7 +66,7 @@ from .ssm import (mlstm_block, mlstm_block_init, mlstm_block_step,
                   slstm_block_step, slstm_empty_state)
 
 __all__ = ["init_params", "decode_step", "prefill", "prefill_forward",
-           "init_decode_state", "cast_params"]
+           "init_decode_state", "cast_params", "lm_loss", "train_loss"]
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
@@ -273,19 +284,28 @@ def _trunk(params, cfg: ModelConfig, par: Parallel, h, positions, *,
         caches["prefix"].append(c)
 
     if n_periods:
-        percall = []
-        for i in range(n_periods):
-            stacked = _period(params["scan"], i)
+        def period_fn(stacked, h, a_s, z_s):
             cs = []
             for j, slot in enumerate(cfg.pattern):
                 h, aux, c = _block_forward(stacked[j], cfg, slot, par, h,
                                            positions, impl=impl)
-                aux_sum = aux_sum + aux["aux"]
-                z_sum = z_sum + aux["z"]
+                a_s = a_s + aux["aux"]
+                z_s = z_s + aux["z"]
                 cs.append(c)
-            h = constrain(par, h)
+            return constrain(par, h), a_s, z_s, tuple(cs)
+
+        remat = _remat(cfg)
+        percall = []
+        for i in range(n_periods):
+            stacked = _period(params["scan"], i)
+            if remat is None:
+                h, aux_sum, z_sum, cs = period_fn(stacked, h, aux_sum,
+                                                  z_sum)
+            else:
+                h, aux_sum, z_sum, cs = remat(period_fn, stacked, h,
+                                              aux_sum, z_sum)
             if collect_caches:
-                percall.append(tuple(cs))
+                percall.append(cs)
         if collect_caches:
             caches["scan"] = _stack(percall)
 
@@ -301,10 +321,96 @@ def _trunk(params, cfg: ModelConfig, par: Parallel, h, positions, *,
     return h, aux_sum, z_sum
 
 
+# the matrix products with no batch dims: what ``remat="dots"`` saves,
+# as ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig):
+    """``cfg.remat`` as a wrapper ``fn, *args -> fn(*args)`` of one
+    scanned period, or None for ``"none"``."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat in ("full", "full_cse"):
+        return functools.partial(ckpt.checkpoint, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {cfg.remat!r} not in none | full | dots")
+
+
 def _head_table(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["embed"]["table"]              # (V, d)
     return params["head"]["w"].T                      # (V, d)
+
+
+def _chunk_loss(cfg: ModelConfig, table, hc, lc, mc):
+    """Summed masked cross-entropy of one chunk, logits in f32."""
+    logits = hc.float() @ table.float().T
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * mc)
+
+
+def lm_loss(params, cfg: ModelConfig, par: Parallel, h, labels, mask=None):
+    """Chunked cross-entropy (the reference's ``mesh=None`` branch).
+
+    h: (B, S, d); labels: (B, S) int; mask: (B, S) or None.  The vocab
+    logits of each ``cfg.loss_chunk`` positions live only inside that
+    chunk's checkpoint (recomputed in the backward), as under the
+    reference's ``jax.checkpoint``."""
+    table = _head_table(params, cfg)
+    B, S, d = h.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    chunk = cfg.loss_chunk if cfg.loss_chunk else S
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if n_chunks * chunk != S:
+        raise ValueError(f"sequence length {S} is not a multiple of "
+                         f"{n_chunks} loss chunks")
+    mask = mask.float()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + ckpt.checkpoint(
+            _chunk_loss, cfg, table, h[:, sl], labels[:, sl], mask[:, sl],
+            use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def train_loss(params, cfg: ModelConfig, par: Parallel, batch, *,
+               impl=None):
+    """Next-token LM loss (+ MoE aux).  Returns (loss, metrics) with the
+    reference's metric names.  ``batch``: ``tokens`` (B, S) int on the
+    parameters' device, optional ``labels`` (default: the next token, 0
+    last) and ``mask``."""
+    _check_supported(cfg)           # encoder-decoder and MTP raise
+    params = cast_params(params, cfg)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = F.pad(tokens[:, 1:], (0, 1))
+    positions = _positions_for(cfg, batch)
+    h = constrain(par, _embed(params, cfg, tokens))
+    h, aux_sum, z_sum = _trunk(params, cfg, par, h, positions, impl=impl)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    loss = lm_loss(params, cfg, par, h, labels, batch.get("mask"))
+    metrics = {"lm_loss": loss, "moe_aux": aux_sum, "router_z": z_sum}
+    loss = loss + cfg.router_aux_weight * aux_sum \
+        + cfg.router_z_weight * z_sum
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _logits(params, cfg: ModelConfig, h):

@@ -1,5 +1,8 @@
 """Runtime of the port: the in-process fault-tolerance pieces the
-elastic serving driver needs."""
-from .fault_tolerance import ElasticWorld, HeartbeatMonitor, rehome_dead_place
+elastic serving driver needs, and the train loop's straggler
+mitigation."""
+from .fault_tolerance import (ElasticWorld, HeartbeatMonitor,
+                              StragglerMitigator, rehome_dead_place)
 
-__all__ = ["ElasticWorld", "HeartbeatMonitor", "rehome_dead_place"]
+__all__ = ["ElasticWorld", "HeartbeatMonitor", "StragglerMitigator",
+           "rehome_dead_place"]

@@ -1,21 +1,25 @@
 """Failure detection and re-homing for in-process place groups.
 
 The port of the parts of ``repro.runtime.fault_tolerance`` that the
-elastic serving driver needs: :class:`HeartbeatMonitor` (a place silent
-for ``timeout_steps`` is declared dead), :func:`rehome_dead_place` (a
-dead place's entries re-home on the survivors through one relocation
-window) and :class:`ElasticWorld` (shrink or grow the place group).
-``ElasticWorld.resize``, ``StragglerMitigator``, ``recover_dead_ranks``,
-the SPMD drain registration and ``FaultTolerantDriver`` wait for the
-port of ``core/distributed.py`` (ROADMAP.md queue 1).
+elastic serving driver and the train loop need: :class:`HeartbeatMonitor`
+(a place silent for ``timeout_steps`` is declared dead),
+:func:`rehome_dead_place` (a dead place's entries re-home on the
+survivors through one relocation window), :class:`ElasticWorld` (shrink
+or grow the place group) and :class:`StragglerMitigator` (paper §4.5
+applied to training data shards).  ``ElasticWorld.resize``,
+``recover_dead_ranks``, the SPMD drain registration and
+``FaultTolerantDriver`` wait for the port of ``core/distributed.py``
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..core import CollectiveMoveManager, PlaceGroup
+from ..core import (CollectiveMoveManager, LevelExtremes, LoadBalancer,
+                    PlaceGroup, Proportional)
 
-__all__ = ["HeartbeatMonitor", "ElasticWorld", "rehome_dead_place"]
+__all__ = ["HeartbeatMonitor", "ElasticWorld", "StragglerMitigator",
+           "rehome_dead_place"]
 
 
 def rehome_dead_place(group: PlaceGroup, dead: int, collections,
@@ -65,6 +69,29 @@ class HeartbeatMonitor:
 
     def alive(self) -> list[int]:
         return [p for p in range(self.n) if p not in self.dead]
+
+
+class StragglerMitigator:
+    """Paper §4.5 applied to training data shards."""
+
+    def __init__(self, n_places: int, *, period: int = 5,
+                 strategy: str = "level_extremes", ema: float = 0.3):
+        strat = (LevelExtremes() if strategy == "level_extremes"
+                 else Proportional(damping=0.7))
+        self.balancer = LoadBalancer(n_places, strategy=strat, period=period,
+                                     ema=ema)
+        self.moves_applied = 0
+
+    def observe_and_maybe_rebalance(self, step_times: np.ndarray,
+                                    shards) -> bool:
+        """shards: data.pipeline.ShardedBatches. Returns True if moved."""
+        self.balancer.record_all(step_times)
+        decision = self.balancer.step(shards.loads())
+        if decision and decision.moves:
+            shards.apply_balance(decision)
+            self.moves_applied += decision.total_moved
+            return True
+        return False
 
 
 class ElasticWorld:

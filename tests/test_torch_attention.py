@@ -10,7 +10,11 @@ that are not block multiples and fully masked rows.  ``attention_flops``
 (the kernel's bound) is held against a brute-force count of the mask,
 and a plain emulation of the tensor-core kernel's arithmetic (bf16
 products summed in f32, P split into bf16 hi + lo, each P V product in
-f32) against ``flash_ref``.
+f32) against ``flash_ref``.  The backward: ``flash_bwd_ref`` (the
+backward kernel's plain version) and autograd through ``FlashAttention``
+on CPU tensors against ``jax.grad`` of the JAX package's
+``attention_ref`` (causal, windows 0 and -3, softcap, GQA) at float32
+within ``1e-5`` of the largest gradient element.
 
 Tolerances: float32 ``1e-5`` (the two packages sum in f32 in another
 order); bfloat16 ``2e-2`` absolute and relative (both round the f32
@@ -19,6 +23,7 @@ rounding only where the JAX kernel upcasts blocks).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -266,3 +271,79 @@ def test_split_p_arithmetic_contract_stays_at_f32_accuracy(case):
     err_split = float((split - want).abs().max())
     err_single = float((single - want).abs().max())
     assert err_split < 1e-4 < err_single, (err_split, err_single)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap): the masks the
+# backward kernel takes, windows 0 and -3 (keys after the row, or none)
+# among them
+BWD_CASES = CASES[:7] + [
+    (1, 4, 2, 30, 30, 16, False, 0, 0.0),
+    (1, 4, 2, 30, 30, 16, False, -3, 0.0),
+    (1, 6, 2, 33, 33, 16, True, -3, 0.0),            # no key: zero grad
+    (1, 6, 3, 45, 45, 16, True, 9, 7.0),
+]
+
+
+def _jax_attention_grads(q, k, v, do, causal, window, softcap):
+    def f(q, k, v):
+        out = jref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+        return jnp.sum(out * do)
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_backward_matches_jax_grad(case):
+    q, k, v = _inputs(case, "float32", seed=21)
+    causal, window, softcap = case[6:]
+    do = np.random.default_rng(22).standard_normal(q.shape) \
+        .astype(np.float32)
+    want = _jax_attention_grads(q, k, v, do, causal, window, softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    tq, tk, tv = (_torch(a) for a in (q, k, v))
+    out, lse = ref.flash_ref(tq, tk, tv, return_lse=True, block_q=16, **kw)
+    plain = ref.flash_bwd_ref(tq, tk, tv, out, lse, torch.from_numpy(do),
+                              block_q=16, **kw)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    got = fa.flash_attention(*leaves, **kw)
+    assert got.grad_fn is not None
+    auto = torch.autograd.grad(got, leaves, torch.from_numpy(do))
+    for name, p, a, w in zip("qkv", plain, auto, want):
+        tol = 1e-5 * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(_np(p), w, atol=tol, rtol=0, err_msg=name)
+        np.testing.assert_allclose(_np(a), w, atol=tol, rtol=0, err_msg=name)
+    if causal and window is not None and window <= 0:
+        assert not any(float(g.abs().max()) for g in plain)
+        assert bool(torch.isinf(lse).all())
+
+
+def test_flash_bwd_ref_matches_autograd_through_flash_ref():
+    q, k, v = (_torch(a) for a in _inputs(CASES[5], "float32", seed=5))
+    causal, window, softcap = CASES[5][6:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ref.flash_ref(*leaves, block_q=16, **kw)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    auto = torch.autograd.grad(out, leaves, do)
+    with torch.no_grad():
+        o, lse = ref.flash_ref(q, k, v, return_lse=True, **kw)
+        plain = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    for p, a in zip(plain, auto):
+        torch.testing.assert_close(p, a, atol=1e-5 * float(a.abs().max()),
+                                   rtol=0)
+
+
+def test_flash_attention_without_grad_saves_nothing():
+    q, k, v = (_torch(a).requires_grad_() for a in _inputs(CASES[0],
+                                                            "float32", 1))
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is None and not out.requires_grad
+    # nor where no input asks for a gradient
+    out = fa.flash_attention(q.detach(), k.detach(), v.detach())
+    assert out.grad_fn is None
+    # the same values either way
+    with_grad = fa.flash_attention(q, k, v)
+    assert type(with_grad.grad_fn).__name__ == "FlashAttentionBackward"
+    torch.testing.assert_close(with_grad.detach(), out, atol=0, rtol=0)

@@ -62,7 +62,11 @@ def test_package_has_the_slice_modules():
                 "core/accumulator.py", "core/product.py", "apps/__init__.py",
                 "apps/kmeans.py", "apps/moldyn.py", "apps/plham.py",
                 "configs/gemma2_27b.py", "configs/gemma3_12b.py",
-                "configs/phi4_mini_3_8b.py"):
+                "configs/phi4_mini_3_8b.py",
+                "kernels/csrc/flash_attention_bwd.cu", "optim/__init__.py",
+                "optim/adamw.py", "train/__init__.py", "train/step.py",
+                "data/__init__.py", "data/pipeline.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py"):
         assert (PORT / mod).is_file(), mod
 
 
@@ -78,7 +82,8 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.core.interop, repro_torch.models, "
             "repro_torch.configs, repro_torch.serving, "
-            "repro_torch.runtime, repro_torch.apps\n"
+            "repro_torch.runtime, repro_torch.apps, repro_torch.optim, "
+            "repro_torch.train, repro_torch.data, repro_torch.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -115,6 +120,10 @@ def test_kernel_build_needs_no_card_to_import():
         *(mod.KERNELS for mod in mods))
     assert flash_attention.SOURCE == \
         "src/repro_torch/kernels/csrc/flash_attention.cu"
+    assert flash_attention.BWD_SOURCE == \
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    assert flash_attention.BWD_LIBRARY._lib is None \
+        or torch.cuda.is_available()
     assert rg_lru.SOURCE == "src/repro_torch/kernels/csrc/rg_lru.cu"
     assert mlstm.SOURCE == "src/repro_torch/kernels/csrc/mlstm.cu"
     assert moe_dispatch.SOURCE == \
