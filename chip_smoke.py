@@ -10,8 +10,9 @@ each hand-written kernel against its plain PyTorch version:
   registers and spills of each of its TMA kernel's 8 instantiations
   (all must be read, none may spill); count the tensor-core (``HMMA``)
   instructions in the mlstm library's SASS, whose kernels may not spill
-  either; read the registers and spills of the flash backward's 18
-  instantiations (none may spill);
+  either; count the ``HGMMA`` instructions in the flash backward's
+  library and read the registers and spills of its 34 instantiations
+  (18 of the FMA route, 16 of the tensor-core route; none may spill);
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
@@ -139,14 +140,18 @@ each hand-written kernel against its plain PyTorch version:
 * phase 18: the flash backward (``flash_attention_bwd``) against
   ``flash_bwd_ref`` over a sweep (head dims 64 and 128, GQA groups 1
   and 6, causal and not, windows none / 1024 / 0 / -3, softcaps 0 and
-  50, ragged lengths, the models' (B, S, H, D) views; float32,
-  bfloat16, float16): float32 within 1e-4 of the largest gradient
-  element, 16-bit each gradient no further (relative L2) from
-  ``flash_bwd_ref`` on float32 copies than 1.25x the plain version's
-  own 16-bit result, two launches the same bits, the forward's
-  log-sum-exp within 1e-5 of ``flash_ref``'s; then timed at qwen2
-  training's shape (q 2 x 12 x 4096 x 128, bfloat16, causal) beside its
-  bound, ``flash_bwd_ref`` and SDPA's backward;
+  50, ragged lengths, the models' (B, S, H, D) views, rows whose
+  stride is no 16-byte multiple; float32, bfloat16, float16), each on
+  the route its dtype and alignment call for (16-bit aligned: the
+  tensor-core route; float32 and unaligned: the FMA route): float32
+  within 1e-4 of the largest gradient element, 16-bit each gradient no
+  further (relative L2) from ``flash_bwd_ref`` on float32 copies than
+  1.25x the plain version's own 16-bit result and every element within
+  half an output ulp of it plus 1e-4 of the largest, two launches the
+  same bits, the forward's log-sum-exp within 1e-5 of ``flash_ref``'s;
+  then timed at qwen2 training's shape (q 2 x 12 x 4096 x 128, bfloat16,
+  causal, (B, S, H, D) views: the tensor-core route) beside its bound,
+  ``flash_bwd_ref`` and SDPA's backward;
 * phase 19: qwen2-1.5B training at full width and depth (f32 master
   weights, ``remat="full"``; the batch from ``ShardedBatches`` over a
   4-place ``PlaceGroup`` fed by ``TokenSource(seed=0)``).  In float32
@@ -159,7 +164,8 @@ each hand-written kernel against its plain PyTorch version:
   step, AdamW lr 1e-3) for 8 steps on one repeated batch with
   ``StragglerMitigator`` observing each; the loss must fall, each step
   launches the flash forward 112 times (56 + 56 recomputed) and its
-  backward 56 times; then a ``CheckpointManager`` round trip of the
+  backward 56 times, every one on the tensor-core route; then a
+  ``CheckpointManager`` round trip of the
   parameters and moments, bit for bit.
 
 The launch counts are set to 0 just before each main path (phases 2-3,
@@ -2555,7 +2561,9 @@ def phase_serving(report, main_launches, key="qwen2"):
 QWEN_TRAIN_ATTN = (2, 12, 2, 4096, 4096, 128)
 # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap[, layout]): head dims
 # 64 and 128, GQA groups 1 and 6, windows none, 1024, 0 and -3, softcaps
-# 0 and 50, Sq = Skv and lengths no multiple of the 64-row tile
+# 0 and 50, Sq = Skv and lengths no multiple of the tiles; 16-bit cases
+# take the tensor-core route but for the unaligned "pad" views (the FMA
+# route, as float32 always does)
 FLASH_BWD_SWEEP = [
     (2, 4, 4, 512, 512, 64, True, None, 0.0),          # group 1
     (1, 12, 2, 512, 512, 128, False, None, 0.0),       # group 6
@@ -2568,6 +2576,7 @@ FLASH_BWD_SWEEP = [
     (1, 4, 4, 300, 300, 64, True, -3, 0.0),
     (1, 6, 1, 129, 200, 128, True, None, 0.0),         # Sq < Skv
     (2, 12, 2, 1000, 1000, 128, True, None, 0.0, "bshd"),  # the models'
+    (1, 12, 2, 300, 300, 128, True, None, 0.0, "pad"),     # unaligned rows
 ]
 # float32: every gradient element within this share of the largest
 FLASH_BWD_F32_TOL = 1e-4
@@ -2596,7 +2605,7 @@ def half_ulp_excess(got, want, dtype) -> float:
     return excess / max(float(want.abs().max()), 1e-30)
 
 
-def flash_bwd_check(gate, q, k, v, do, dtype, what, **kw):
+def flash_bwd_check(gate, q, k, v, do, dtype, what, layout="bhsd", **kw):
     """The backward kernel on (q, k, v, do) against ``flash_bwd_ref``:
     float32 within ``FLASH_BWD_F32_TOL`` of the largest gradient element;
     16-bit, each of dq / dk / dv no further (relative L2) from
@@ -2604,7 +2613,7 @@ def flash_bwd_check(gate, q, k, v, do, dtype, what, **kw):
     plain version's own 16-bit result is, and every element within half
     an output ulp of it plus ``FLASH_BWD_ULP_ATOL``; two launches the
     same bits; the forward's log-sum-exp within ``FLASH_LSE_TOL`` of
-    flash_ref's."""
+    flash_ref's; the route the one the dtype and ``layout`` call for."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -2617,14 +2626,21 @@ def flash_bwd_check(gate, q, k, v, do, dtype, what, **kw):
     gate.check(torch.equal(live, torch.isfinite(lse))
                and lse_err <= FLASH_LSE_TOL,
                f"{what}: forward log-sum-exp off flash_ref's by {lse_err}")
+    before = dict(fa.bwd_route_counts)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    taken = {r: n - before[r] for r, n in fa.bwd_route_counts.items()}
+    route = max(taken, key=taken.get)
+    expect = "fma" if dtype == "float32" or layout == "pad" \
+        else "tensor_core"
+    gate.check(taken[expect] == 2 and sum(taken.values()) == 2,
+               f"{what}: backward routes {taken}, not 2 x {expect}")
     want = ref.flash_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                              lse, do.float(), **kw)
     plain = want if dtype == "float32" else ref.flash_bwd_ref(
         q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
-    row = {"dtype": dtype, "lse_max_abs_err": lse_err,
+    row = {"dtype": dtype, "route": route, "lse_max_abs_err": lse_err,
            "deterministic": all(torch.equal(a, b)
                                 for a, b in zip(got, again))}
     gate.check(row["deterministic"], f"{what}: two launches differ")
@@ -2666,7 +2682,7 @@ def phase_flash_backward(report):
             do = flash_inputs(gen, case[:6], dtype, *case[9:])[0]
             kw = dict(zip(("causal", "window", "softcap"), case[6:9]))
             row = flash_bwd_check(gate, q, k, v, do, dtype,
-                                  f"{dtype} {case}", **kw)
+                                  f"{dtype} {case}", *case[9:], **kw)
             sweep.append(dict(row, case=list(case)))
             del q, k, v, do
     report["flash_backward_sweep"] = sweep
@@ -2675,7 +2691,7 @@ def phase_flash_backward(report):
     q, k, v = flash_inputs(gen, QWEN_TRAIN_ATTN, "bfloat16", "bshd")
     do = flash_inputs(gen, QWEN_TRAIN_ATTN, "bfloat16", "bshd")[0]
     train = flash_bwd_check(gate, q, k, v, do, "bfloat16",
-                            "qwen2 training shape", causal=True)
+                            "qwen2 training shape", "bshd", causal=True)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
     run = lambda: fa.flash_attention_bwd(  # noqa: E731
         q, k, v, out, lse, do, causal=True)
@@ -2700,6 +2716,7 @@ def phase_flash_backward(report):
         "bound_ms": bound * 1e3, "flops": flops, "bytes": nbytes,
         "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
         >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "route": train["route"],
         "max_abs_err": max(train[n]["max_abs_err"] for n in ("dq", "dk",
                                                              "dv")),
         "check": train}
@@ -2715,7 +2732,10 @@ def phase_flash_backward(report):
         r[n]["rel_l2_vs_f32"] / max(r[n]["plain_rel_l2_vs_f32"], 1e-30)
         for r in sweep if r["dtype"] != "float32" for n in ("dq", "dk", "dv")
         if r[n]["plain_rel_l2_vs_f32"] > 0)
-    log(f"[flash backward] {res['ms']:.3f} ms, {res['tflops']:.1f} TFLOP/s "
+    res["sweep_routes"] = {r: sum(x["route"] == r for x in sweep)
+                           for r in ("tensor_core", "fma")}
+    log(f"[flash backward] {res['route']} route {res['ms']:.3f} ms, "
+        f"{res['tflops']:.1f} TFLOP/s "
         f"(bound {res['bound_ms']:.4f}, plain {res['plain_ms']:.3f}, sdpa "
         f"backward {res['library_ms']:.3f}); sweep f32 share "
         f"{res['sweep_max_f32_share']:.2e}, 16-bit ratio "
@@ -2816,6 +2836,7 @@ def phase_train(report, main_launches):
     import torch
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Parallel, zoo
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     from repro_torch.runtime import StragglerMitigator
@@ -2925,6 +2946,7 @@ def phase_train(report, main_launches):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cuda_build.reset_launch_counts()
+    fa.bwd_route_counts.update(tensor_core=0, fma=0)
     for _ in range(TRAIN["steps"]):
         s0 = time.perf_counter()
         params, state, metrics = step(params, state, batch)
@@ -2949,6 +2971,7 @@ def phase_train(report, main_launches):
         "tokens_per_step": tokens,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches_per_step": per_step,
+        "flash_bwd_routes": dict(fa.bwd_route_counts),
         "grad_norm": float(metrics["grad_norm"]),
         "straggler_moves": mitigator.moves_applied}
     gate.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2957,6 +2980,10 @@ def phase_train(report, main_launches):
             "flash_attention_bwd": 2 * cfg.n_layers}
     gate.check(all(per_step.get(k) == v for k, v in want.items()),
                f"launches per step {per_step}, not {want}")
+    gate.check(fa.bwd_route_counts == {"tensor_core": n * want[
+        "flash_attention_bwd"], "fma": 0},
+        f"flash backward routes {fa.bwd_route_counts}: every call of the "
+        "bf16 main path takes the tensor-core route")
     gate.check(mitigator.moves_applied == 0, "the even cluster moved rows")
     log(f"[qwen2_train] {ms:.1f} ms/step, "
         f"{out['bfloat16']['tokens_per_s']:.0f} tokens/s, peak "
@@ -3125,18 +3152,26 @@ def profile_apps(named, report):
     return out
 
 
+def sass_count(so_path, *ops) -> int:
+    """Lines of a built library's SASS (``cuobjdump -sass``) that hold
+    any of ``ops``."""
+    from repro_torch.kernels import cuda_build
+
+    sass = subprocess.run(
+        [str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(so_path)], capture_output=True, text=True, timeout=300)
+    return sum(any(op in line for op in ops)
+               for line in sass.stdout.splitlines())
+
+
 def flash_build(build_log, so_path):
     """What phase 0 built for flash: ``HGMMA`` (wgmma) instructions in
     the library's SASS, and ptxas' registers and spills for each of the
     TMA kernel's 8 instantiations (bf16/f16 x D 64/128/192/256), from the
     compiler's output that ``cuda_build`` keeps beside the library."""
     import re
-    from repro_torch.kernels import cuda_build
 
-    sass = subprocess.run(
-        [str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
-         str(so_path)], capture_output=True, text=True, timeout=300)
-    hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    hgmma = sass_count(so_path, "HGMMA")
     kernels, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Function properties for \S*flash_tma_kernelI"
@@ -3167,15 +3202,19 @@ def flash_build(build_log, so_path):
     return out
 
 
-def flash_bwd_build(build_log):
-    """What phase 0 built for the flash backward: ptxas' registers and
-    spills of each of its kernels (delta, dK/dV, dQ) x (f32, bf16, f16) x
-    (D 64, 128); none may spill."""
+def flash_bwd_build(build_log, so_path):
+    """What phase 0 built for the flash backward: ``HGMMA`` (wgmma)
+    instructions in the library's SASS (the tensor-core route), and
+    ptxas' registers and spills of each kernel: the FMA route's (delta,
+    dK/dV, dQ) x (f32, bf16, f16) and the tensor-core route's (rows,
+    dK/dV, group sum, dQ) x (bf16, f16), each at D 64 and 128; none may
+    spill."""
     import re
 
+    hgmma = sass_count(so_path, "HGMMA")
     kernels, cur = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"Function properties for \S*?\d(flash_bwd_[a-z]+)I"
+        m = re.search(r"Function properties for \S*?\d(flash_bwd_[a-z_]+)I"
                       r"(\w+?)Li(\d+)E", line)
         if m:
             dt = "f16" if "half" in m.group(2) else \
@@ -3189,15 +3228,20 @@ def flash_bwd_build(build_log):
             kernels[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
             cur = None
-    log(f"[build] flash backward: {kernels}")
+    log(f"[build] flash backward: {hgmma} HGMMA in the SASS; {kernels}")
+    require(hgmma > 0, "flash backward: no wgmma (HGMMA) in "
+            "libflash_attention_bwd.so")
     want = {f"flash_bwd_{k} {t} D={d}" for k in ("delta", "dkdv", "dq")
-            for t in ("f32", "bf16", "f16") for d in (64, 128)}
+            for t in ("f32", "bf16", "f16") for d in (64, 128)} \
+        | {f"flash_bwd_{k} {t} D={d}" for k in ("rows", "dkdv_tc", "gsum",
+                                                 "dq_tc")
+           for t in ("bf16", "f16") for d in (64, 128)}
     require(set(kernels) == want and all(
         k.get("spill_bytes") == 0 and "registers" in k
         for k in kernels.values()),
         f"flash backward: ptxas must report 0 spill bytes and the registers "
         f"of each of {sorted(want)}; the build log gave {kernels}")
-    return kernels
+    return {"hgmma": hgmma, "kernels": kernels}
 
 
 def mlstm_build(build_log, so_path):
@@ -3205,13 +3249,8 @@ def mlstm_build(build_log, so_path):
     in the library's SASS, and ptxas' spills for every kernel
     instantiation, from the compiler's output kept beside the library."""
     import re
-    from repro_torch.kernels import cuda_build
 
-    sass = subprocess.run(
-        [str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
-         str(so_path)], capture_output=True, text=True, timeout=300)
-    hmma = sum("HMMA" in line or "HGMMA" in line
-               for line in sass.stdout.splitlines())
+    hmma = sass_count(so_path, "HMMA", "HGMMA")
     spills, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Function properties for \S*?\d(mlstm_[a-z]+_kernel)"
@@ -3303,7 +3342,8 @@ def main(argv=None) -> int:
                                         paths[libraries.index(fa.LIBRARY)])
     report["mlstm_build"] = mlstm_build(ml.LIBRARY.build_log,
                                         paths[libraries.index(ml.LIBRARY)])
-    report["flash_bwd_build"] = flash_bwd_build(fa.BWD_LIBRARY.build_log)
+    report["flash_bwd_build"] = flash_bwd_build(
+        fa.BWD_LIBRARY.build_log, paths[libraries.index(fa.BWD_LIBRARY)])
 
     with Phase("kernels", report):
         times = phase_kernels(args.shift, report)

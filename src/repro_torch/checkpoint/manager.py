@@ -14,9 +14,14 @@ restoring re-partitions them for any world size.  Tensor leaves leave
 the card as numpy copies and come back on the template leaf's device.
 
 numpy has no bfloat16 of its own: the reference writes such a leaf with
-``ml_dtypes``' extension dtype, which the port does not import (its
-package boundary), so a bfloat16 leaf raises on save and on restore.
-Master parameters and f32 or int8 moments are f32, int8 and int32.
+``ml_dtypes``' extension dtype, an npy member whose header says ``<V2``
+and a manifest entry ``"dtype": "bfloat16"``.  The port, which does not
+import ``ml_dtypes`` (its package boundary), writes the same bytes from
+a ``uint16`` view under the same header and entry.  Neither package
+restores such a leaf: ``np.load`` gives the reference a ``|V2`` array
+that ``astype("bfloat16")`` cannot cast, and the port's restore raises
+where the reference's would.  Master parameters and f32 or int8 moments
+are f32, int8 and int32.
 """
 from __future__ import annotations
 
@@ -39,9 +44,12 @@ from ..core import RangeDistribution
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "CheckpointManager"]
 
-_BF16 = ("checkpoint: bfloat16 leaves are stored with ml_dtypes' numpy "
-         "dtype, which the port does not import; keep master parameters "
-         "and moments in float32 (or int8 moments)")
+_BF16 = ("checkpoint: a bfloat16 leaf is saved as the reference saves it "
+         "(an npy '<V2' member under ml_dtypes' dtype name) but cannot be "
+         "restored: the reference's own restore fails the same way (np.load "
+         "gives '|V2', which astype('bfloat16') cannot cast); keep master "
+         "parameters and moments in float32 (or int8 moments)")
+_BF16_DESCR = "<V2"   # what np.save writes for ml_dtypes' bfloat16
 
 
 def _flatten_with_paths(tree):
@@ -77,15 +85,38 @@ def _unflatten_into(template, values: dict):
     return walk(template, ())
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """The leaf's host array and its manifest dtype: a bfloat16 leaf
+    travels as its ``uint16`` bits under the name ``"bfloat16"``."""
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            raise TypeError(_BF16)
-        return leaf.detach().cpu().numpy()
+            return leaf.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return leaf.numpy(), str(leaf.numpy().dtype)
     arr = np.asarray(leaf)
-    if arr.dtype.name == "bfloat16":
-        raise TypeError(_BF16)
-    return arr
+    if arr.dtype.name == "bfloat16":       # an ml_dtypes array handed in
+        return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
+def _savez(path, payload: dict, bf16: set) -> None:
+    """``np.savez(path, **payload)``, member for member, except that the
+    members named in ``bf16`` (``uint16`` bits) get the header
+    ``np.save`` writes for ml_dtypes' bfloat16."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in payload.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if key not in bf16:
+                    fmt.write_array(fid, np.asanyarray(arr),
+                                    allow_pickle=False)
+                    continue
+                arr = np.ascontiguousarray(arr)
+                header = fmt.header_data_from_array_1_0(arr)
+                header["descr"] = _BF16_DESCR
+                fmt.write_array_header_1_0(fid, header)
+                fid.write(arr.tobytes("C"))
 
 
 def _read_npz(path) -> dict:
@@ -135,14 +166,15 @@ def save_checkpoint(directory, step: int, tree, *, n_shards: int = 1,
     """Shard leaves by rows over ``n_shards`` places and commit atomically."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    flat = [(path, _host(leaf)) for path, leaf in _flatten_with_paths(tree)]
+    flat = [(path, *_host(leaf)) for path, leaf in _flatten_with_paths(tree)]
     tmp = Path(tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_"))
     manifest = {"step": step, "n_shards": n_shards, "time": time.time(),
                 "leaves": {}, "meta": extra_meta or {}}
     shards: list[dict] = [{} for _ in range(n_shards)]
-    for path, arr in flat:
+    bf16 = {path for path, _, dtype in flat if dtype == "bfloat16"}
+    for path, arr, dtype in flat:
         manifest["leaves"][path] = {"shape": list(arr.shape),
-                                    "dtype": str(arr.dtype)}
+                                    "dtype": dtype}
         if arr.ndim == 0 or arr.shape[0] < n_shards:
             shards[0][path] = arr
             manifest["leaves"][path]["layout"] = "replicated"
@@ -153,7 +185,7 @@ def save_checkpoint(directory, step: int, tree, *, n_shards: int = 1,
                 for r in dist.ranges_of(p):
                     shards[p][path] = arr[r.start:r.end]
     for i, payload in enumerate(shards):
-        np.savez(tmp / f"shard_{i}.npz", **payload)
+        _savez(tmp / f"shard_{i}.npz", payload, bf16)
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     final = directory / f"step_{step:08d}"
     if final.exists():

@@ -90,15 +90,12 @@
 // so its floor is 1.5x the bound.  Not done here: ping-pong scheduling
 // of the two consumer warpgroups, intra-warpgroup overlap of softmax
 // and the products, a persistent tile scheduler, GQA head packing.
+//
+// The Hopper building blocks (mbarriers, TMA, wgmma descriptors and
+// wrappers, the hi + lo split, the tensor-map encoder) live in
+// hopper.cuh, shared with the backward (flash_attention_bwd.cu).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -108,29 +105,6 @@ constexpr int kThreads = 256;  // FMA path: 16 x 16
 constexpr int kRows = 4;       // FMA path: query rows per thread
 constexpr int kCols = 4;       // FMA path: score columns per thread
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) {
-  return __half2float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Params {
   const void* q;
@@ -315,8 +289,6 @@ flash_fwd_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 constexpr int kTmaBQ = 128;       // query rows per CTA: 2 consumer warpgroups
 constexpr int kTmaThreads = 384;  // producer warpgroup + 2 consumers
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct TmaTile {
@@ -333,219 +305,6 @@ struct TmaTile {
   // 1024 bytes of slack align the tiles to the swizzle's 1024-byte atom
   static constexpr uint32_t kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
 };
-
-// two floats -> one register of two T (x in the low half)
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float x, float y);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
-  __half2 v = __floats2half2_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) = hi + lo, each a register of two T: hi the rounded pair, lo
-// the pair of residuals
-template <typename T>
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  hi = pack2<T>(x, y);
-  const T* h = reinterpret_cast<const T*>(&hi);
-  lo = pack2<T>(x - to_f32<T>(h[0]), y - to_f32<T>(h[1]));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map into shared memory, completing on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or reuses of registers that an
-// in-flight wgmma owns across this point
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma.mma_async, f32 accumulators: SS (A and B descriptors, both
-// K-major) at N = 64 and 128 with scale-d from ``scale_d``, and RS (A
-// from registers, B descriptor MN-major) at N = 64, accumulating.
-#define FLASH_WGMMA_SS_N64(NAME, TY) \
-  __device__ __forceinline__ void NAME(float (&d)[32], uint64_t a, \
-                                       uint64_t b, int scale_d) { \
-    asm volatile( \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
-        : "l"(a), "l"(b), "r"(scale_d)); \
-  }
-
-#define FLASH_WGMMA_SS_N128(NAME, TY) \
-  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t a, \
-                                       uint64_t b, int scale_d) { \
-    asm volatile( \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
-        : "l"(a), "l"(b), "r"(scale_d)); \
-  }
-
-#define FLASH_WGMMA_RS_N64(NAME, TY) \
-  __device__ __forceinline__ void NAME(float (&d)[32], const uint32_t (&a)[4], \
-                                       uint64_t b) { \
-    asm volatile( \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
-  }
-
-
-FLASH_WGMMA_SS_N64(wgmma_ss64_bf16, "bf16")
-FLASH_WGMMA_SS_N64(wgmma_ss64_f16, "f16")
-FLASH_WGMMA_SS_N128(wgmma_ss128_bf16, "bf16")
-FLASH_WGMMA_SS_N128(wgmma_ss128_f16, "f16")
-FLASH_WGMMA_RS_N64(wgmma_rs64_bf16, "bf16")
-FLASH_WGMMA_RS_N64(wgmma_rs64_f16, "f16")
-
-template <typename T> struct Wgmma;
-template <> struct Wgmma<__nv_bfloat16> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    wgmma_ss64_bf16(d, a, b, scale_d);
-  }
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    wgmma_ss128_bf16(d, a, b, scale_d);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    wgmma_rs64_bf16(d, a, b);
-  }
-};
-template <> struct Wgmma<__half> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    wgmma_ss64_f16(d, a, b, scale_d);
-  }
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    wgmma_ss128_f16(d, a, b, scale_d);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    wgmma_rs64_f16(d, a, b);
-  }
-};
-
-// 2^x in one MUFU instruction (2^-inf = 0; results below 2^-126 flush
-// to 0, far under anything a bf16/f16 P keeps)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Mask (when kMasked), online softmax and the l update on one score tile
 // in the wgmma accumulator layout: s[4 t + e] is row r0 + 8 (e >> 1),
@@ -834,72 +593,14 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap qmap,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the TMA path reads every row through a tensor map, which takes
 // 16-byte aligned bases and strides that are 16-byte multiples in
 // [16, 2^40): every row start must be 16-byte aligned
 inline bool rows_aligned16(const Params& p) {
-  const auto al = [](const void* x) {
-    return reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  };
-  const long long s[9] = {p.qsb, p.qsh, p.qss, p.ksb, p.ksh,
-                          p.kss, p.vsb, p.vsh, p.vss};
-  for (long long x : s)
-    if (x % 8 || x <= 0 || x >= (1LL << 39)) return false;
-  return al(p.q) && al(p.k) && al(p.v) && al(p.out);
-}
-
-// a (B, H, S, D) view with element strides (sb, sh, ss, 1) as a 4-D map
-// (D, S, H, B) read in boxes of 64 columns x ``rows``, 128-byte swizzle,
-// zeros past the edges; 0 or -CUresult
-template <typename T>
-int encode_map(CUtensorMap* map, const void* ptr, long long B, long long H,
-               long long S, int D, long long sb, long long sh, long long ss,
-               int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * sizeof(T),
-                                 static_cast<cuuint64_t>(sh) * sizeof(T),
-                                 static_cast<cuuint64_t>(sb) * sizeof(T)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+  return view_aligned16(p.q, p.qsb, p.qsh, p.qss) &&
+         view_aligned16(p.k, p.ksb, p.ksh, p.kss) &&
+         view_aligned16(p.v, p.vsb, p.vsh, p.vss) &&
+         reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
 }
 
 template <typename T, int D>

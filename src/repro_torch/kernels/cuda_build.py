@@ -2,9 +2,10 @@
 
 Every source under ``csrc/`` has a plain C interface and is compiled on
 its own by ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch_kernels/<hash of source and flags>/lib<name>.so``
-(with the compiler's output beside it, ``lib<name>.log``), then loaded
-with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per
+``build/repro_torch_kernels/<hash>/lib<name>.so``, the hash taken over
+the source, the ``csrc/*.cuh`` headers it includes and the flags (with
+the compiler's output beside it, ``lib<name>.log``), then loaded with
+``ctypes``.  :func:`build_all` starts one ``nvcc`` per
 source at once, so a fresh checkout pays for the slowest build only.
 
 The launch-count registry lives here too: each wrapper adds one to
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -120,9 +122,17 @@ class CudaLibrary:
         """The CUDA source, relative to the repository root."""
         return str(self.src.relative_to(_ROOT))
 
+    def headers(self) -> list[Path]:
+        """The ``csrc/*.cuh`` headers the source includes."""
+        names = re.findall(r'^\s*#include\s+"([^"]+\.cuh)"',
+                           self.src.read_text(), flags=re.M)
+        return [CSRC / n for n in names]
+
     def _target(self) -> Path:
-        key = hashlib.sha256(self.src.read_bytes()
-                             + " ".join(_FLAGS).encode()).hexdigest()[:16]
+        text = self.src.read_bytes() + b"".join(
+            h.read_bytes() for h in self.headers())
+        key = hashlib.sha256(text + " ".join(_FLAGS).encode()) \
+            .hexdigest()[:16]
         return _BUILD_ROOT / key / f"lib{self.name}.so"
 
     def _start(self):

@@ -11,10 +11,16 @@ Each launch adds one to ``launch_counts["flash_attention"]``.
 
 Its gradient is :class:`FlashAttention`: the forward kernel also writes
 each row's log-sum-exp, and the backward is hand-written too
-(``csrc/flash_attention_bwd.cu``, FlashAttention-2's dK/dV and dQ
-kernels on f32 FMA tiles, head dims 64 and 128; its plain version
-:func:`repro_torch.kernels.ref.flash_bwd_ref`), counted as
-``flash_attention_bwd``.
+(``csrc/flash_attention_bwd.cu``, head dims 64 and 128; its plain
+version :func:`repro_torch.kernels.ref.flash_bwd_ref`), counted as
+``flash_attention_bwd``.  It has two routes, which the library picks
+before the launch (``flash_bwd_scratch_floats`` names the route and the
+scratch the wrapper allocates; :data:`bwd_route_counts` counts the
+calls of each): bfloat16/float16 views at head dim 64 or 128 whose row
+starts and strides are 16-byte multiples take the tensor-core kernels (TMA +
+``wgmma``, P and dS split into ``hi + lo``, dK/dV per q-head with the
+group summed in a fixed order); float32 and unaligned views take
+FlashAttention-2's kernels on f32 FMA tiles.
 
 Supports GQA (``Hq % Hkv == 0``), causal masking (top-left), a sliding
 window (keys ``j > i - window``, for any integer window: one <= 0 keeps
@@ -45,7 +51,7 @@ from . import ref
 from .cuda_build import CudaLibrary, counted, cuda_stream
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "FlashAttention",
+           "FlashAttention", "bwd_route_counts",
            "KERNELS", "LIBRARY", "BWD_LIBRARY", "SOURCE", "BWD_SOURCE",
            "attention_flops"]
 
@@ -57,6 +63,9 @@ KERNELS = {"flash_attention": "src/repro/kernels/flash_attention.py:34",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128, 192, 256)
 _BWD_HEAD_DIMS = (64, 128)
+#: backward calls on the card by route ("tensor_core" or "fma"), so that
+#: a run can show which kernels its main path took
+bwd_route_counts: dict[str, int] = {"tensor_core": 0, "fma": 0}
 
 
 def _bind(lib) -> None:
@@ -73,6 +82,8 @@ def _bind_bwd(lib) -> None:
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] + [L] * 6 \
         + [P, F, I, L, F, P]
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_bwd_scratch_floats.argtypes = [P, P, I] + [L] * 6 + [P]
+    lib.flash_bwd_scratch_floats.restype = L
 
 
 LIBRARY = CudaLibrary("flash_attention.cu", "flash_attention", _bind,
@@ -188,8 +199,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     (B, H, S, D) view with a unit last stride (the models' transposed
     (B, S, H, D) views included) is read in place through its strides;
     the gradients are laid out like q, k and v where those are dense,
-    else contiguous.  A refused launch raises.  Each call adds one to
-    ``launch_counts["flash_attention_bwd"]``."""
+    else contiguous.  The library names the route and its scratch, which
+    is allocated here.  A refused launch or a tensor map that fails to
+    encode raises.  Each call adds one to
+    ``launch_counts["flash_attention_bwd"]`` and to its route's
+    :data:`bwd_route_counts`."""
     if q.device.type == "cpu":
         return ref.flash_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                  window=window, softcap=softcap,
@@ -213,20 +227,32 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B == 0 or Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    views = (q, k, v, out, dout, dq, dk, dv)
+    ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in views))
     strides = (ctypes.c_longlong * 24)(*(
-        s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
-    rc = BWD_LIBRARY.lib().flash_attention_bwd(
+        s for t in views for s in t.stride()[:3]))
+    lib = BWD_LIBRARY.lib()
+    tc = ctypes.c_int()
+    scratch = torch.empty(lib.flash_bwd_scratch_floats(
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        ctypes.cast(strides, ctypes.c_void_p), _DTYPE_CODE[q.dtype],
+        B, Hq, Hkv, Sq, Skv, D, ctypes.byref(tc)),
+        dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
         B, Hq, Hkv, Sq, Skv, D, ctypes.cast(strides, ctypes.c_void_p),
         float(sm_scale), int(bool(causal)), _window(window, Sq, Skv),
         float(softcap or 0.0), cuda_stream(q.device))
+    if rc < 0:
+        raise RuntimeError("flash_attention_bwd: a TMA tensor map failed to "
+                           f"encode (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{rc}")
     counted("flash_attention_bwd")
+    bwd_route_counts["tensor_core" if tc.value else "fma"] += 1
     return dq, dk, dv
 
 

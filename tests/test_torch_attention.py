@@ -14,7 +14,11 @@ f32) against ``flash_ref``.  The backward: ``flash_bwd_ref`` (the
 backward kernel's plain version) and autograd through ``FlashAttention``
 on CPU tensors against ``jax.grad`` of the JAX package's
 ``attention_ref`` (causal, windows 0 and -3, softcap, GQA) at float32
-within ``1e-5`` of the largest gradient element.
+within ``1e-5`` of the largest gradient element, and a plain emulation
+of the tensor-core backward's arithmetic (bf16 products summed in f32,
+P and dS split into bf16 hi + lo, dK/dV group partials summed in head
+order) within half a bf16 ulp plus ``1e-4`` of the largest element of
+``jax.grad``, where one bf16 rounding of P and dS lands ~1e-3 beyond.
 
 Tolerances: float32 ``1e-5`` (the two packages sum in f32 in another
 order); bfloat16 ``2e-2`` absolute and relative (both round the f32
@@ -316,6 +320,102 @@ def test_flash_backward_matches_jax_grad(case):
     if causal and window is not None and window <= 0:
         assert not any(float(g.abs().max()) for g in plain)
         assert bool(torch.isinf(lse).all())
+
+
+def _emulate_tensor_core_backward(q, k, v, o, lse, do, *, causal, window,
+                                  softcap, split):
+    """The 16-bit backward route's arithmetic in plain PyTorch (not the
+    kernel): q, k, v, do in bfloat16; S = Q K^T and dP = dO V^T summed in
+    f32; P = exp(x - L) and dS = P (dP - D) dcap sm_scale in f32, then
+    split into bfloat16 ``hi`` (and, with ``split``, the residual as
+    ``lo``); dV = P^T dO, dK = dS^T Q and dQ = dS K from those halves,
+    summed in f32; dK and dV of a kv head summed over its group's
+    q-heads in head order, as the kernel's group-sum pass does; each
+    gradient rounded once."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    sm = 1.0 / math.sqrt(D)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    x = qf @ kf.transpose(-1, -2) * sm
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+    rows, cols = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    keep = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        keep &= cols <= rows
+    if window is not None:
+        keep &= cols > rows - window
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(keep & live, torch.exp(
+        x - torch.where(live, lse[..., None], 0.0)), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * sm
+    if softcap:
+        ds = ds * (1.0 - t * t)
+
+    def halves(a):
+        hi = a.to(q.dtype).float()
+        return [hi, (a - hi).to(q.dtype).float()] if split else [hi]
+
+    def group_sum(a):
+        a = a.reshape(B, Hkv, group, Skv, D)
+        acc = a[:, :, 0]
+        for g in range(1, group):
+            acc = acc + a[:, :, g]
+        return acc
+
+    dq = sum(h @ kf for h in halves(ds))
+    dk = group_sum(sum(h.transpose(-1, -2) @ qf for h in halves(ds)))
+    dv = group_sum(sum(h.transpose(-1, -2) @ dof for h in halves(p)))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _half_ulp_excess(got, want):
+    """The largest ``|got - want| - ulp(want) / 2`` in bfloat16, as a
+    share of ``max|want|``."""
+    want = torch.from_numpy(np.array(want))
+    _, e = torch.frexp(want)
+    half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+        torch.ones_like(want), e.clamp_min(-125) - 9))
+    excess = float(((got.float() - want).abs() - half_ulp).max())
+    return excess / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_split_p_and_ds_backward_contract_stays_within_half_an_ulp(case):
+    """The arithmetic contract of the tensor-core backward (bfloat16 /
+    float16 aligned views), emulated in plain PyTorch: with P and dS
+    split into bfloat16 hi + lo, every gradient element lies within half
+    a bfloat16 ulp of ``jax.grad`` of the JAX package's
+    ``attention_ref`` (f32, on the same bfloat16 inputs) plus 1e-4 of
+    the largest; one bfloat16 rounding of P and dS misses that gate
+    (~1e-3 beyond) wherever the gradient is not 0.  O and L are the f32
+    forward's, as in ``jax.grad``'s own row sums; the kernel itself is
+    held to this gate against ``flash_bwd_ref`` on the card
+    (``test_torch_cuda.py``, ``chip_smoke.py`` phase 18)."""
+    qn, kn, vn = _inputs(case, "bfloat16", seed=21)
+    causal, window, softcap = case[6:]
+    don = np.random.default_rng(22).standard_normal(qn.shape) \
+        .astype(np.float32).astype(ml_dtypes.bfloat16)
+    f32 = [np.asarray(a, np.float32) for a in (qn, kn, vn, don)]
+    want = _jax_attention_grads(*f32, causal, window, softcap)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in f32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ref.flash_ref(*(torch.from_numpy(a) for a in f32[:3]),
+                           return_lse=True, **kw)
+    split, single = (
+        max(_half_ulp_excess(g, w) for g, w in zip(
+            _emulate_tensor_core_backward(q, k, v, o, lse, do, split=s,
+                                          **kw), want))
+        for s in (True, False))
+    if not any(np.abs(w).max() for w in want):      # no kept key
+        assert split == single == 0.0
+    else:
+        assert split <= 1e-4 < single, (split, single)
 
 
 def test_flash_bwd_ref_matches_autograd_through_flash_ref():

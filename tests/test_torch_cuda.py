@@ -30,9 +30,12 @@ float32 within ``1e-4`` of the largest gradient element of
 ``flash_bwd_ref``; in bfloat16 each of dq, dk, dv no further (relative
 L2) from ``flash_bwd_ref`` on float32 copies than 1.25x the plain
 version's own bfloat16 result is; two launches the same bits; the
-forward's log-sum-exp within ``1e-5`` of ``flash_ref``'s; a reduced
-qwen2 train step's gradients fused vs composite within ``1e-4`` in
-relative L2 (float32).
+forward's log-sum-exp within ``1e-5`` of ``flash_ref``'s; every case on
+both of its routes (16-bit aligned: the tensor-core kernels; float32
+and unaligned views: the FMA kernels), each element of a 16-bit
+gradient within half an output ulp of the float32 result plus ``1e-4``
+of the largest; a reduced qwen2 train step's gradients fused vs
+composite within ``1e-4`` in relative L2 (float32).
 """
 import dataclasses
 
@@ -760,11 +763,23 @@ def _rel_l2(a, b):
     return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def _bwd_expected_route(dtype, layout):
+    return "fma" if dtype == "float32" or layout == "pad" else "tensor_core"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", ["aligned", "unaligned"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
-def test_flash_backward_kernel_matches_flash_bwd_ref_on_card(case, dtype):
+def test_flash_backward_kernel_matches_flash_bwd_ref_on_card(case, dtype,
+                                                             rows):
+    """Every case on both routes: bfloat16 / float16 with aligned rows
+    take the tensor-core kernels, float32 and rows whose stride is no
+    16-byte multiple (``"pad"`` views) the FMA kernels."""
     _need_card()
+    if rows == "unaligned":
+        case = case[:9] + ("pad",)
+    layout = case[9] if len(case) > 9 else "bhsd"
     q, k, v = _flash_inputs(case, dtype, seed=len(str(case)))
     do = _flash_inputs(case, dtype, seed=len(str(case)) + 1)[0]
     kw = dict(zip(("causal", "window", "softcap"), case[6:9]))
@@ -775,10 +790,14 @@ def test_flash_backward_kernel_matches_flash_bwd_ref_on_card(case, dtype):
     if live.any():
         assert float((lse[live] - lse_ref[live]).abs().max()) <= 1e-5
     before = rc.launch_counts["flash_attention_bwd"]
+    routes = dict(fa.bwd_route_counts)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert rc.launch_counts["flash_attention_bwd"] == before + 2
+    route = _bwd_expected_route(dtype, layout)
+    assert {r: n - routes[r] for r, n in fa.bwd_route_counts.items()} \
+        == {r: 2 * (r == route) for r in routes}
     want = ref.flash_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                              lse, do.float(), **kw)
     plain = ref.flash_bwd_ref(q, k, v, out, lse, do, **kw)
@@ -802,18 +821,26 @@ def test_flash_backward_kernel_matches_flash_bwd_ref_on_card(case, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_gradients_reach_q_k_v_on_card():
+@pytest.mark.parametrize("layout", ["bshd", "pad"])
+def test_flash_gradients_reach_q_k_v_on_card(layout):
+    """Autograd through ``FlashAttention`` on both routes: aligned
+    (B, S, H, D) views take the tensor-core backward, ``"pad"`` views
+    the FMA one."""
     _need_card()
     q, k, v = (t.requires_grad_() for t in _flash_inputs(
-        (1, 12, 2, 300, 300, 128, True, None, 0.0, "bshd"), "bfloat16", 3))
+        (1, 12, 2, 300, 300, 128, True, None, 0.0, layout), "bfloat16", 3))
     before = dict(rc.launch_counts)
+    routes = dict(fa.bwd_route_counts)
     out = fa.flash_attention(q, k, v, causal=True)
     assert out.requires_grad and out.grad_fn is not None
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     assert rc.launch_counts["flash_attention"] == before["flash_attention"] + 1
     assert rc.launch_counts["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
+    route = _bwd_expected_route("bfloat16", layout)
+    assert fa.bwd_route_counts[route] == routes[route] + 1
     for t in (q, k, v):
         assert t.grad is not None and t.grad.shape == t.shape
         assert torch.isfinite(t.grad.float()).all() and t.grad.abs().max() > 0

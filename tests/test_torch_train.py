@@ -38,10 +38,13 @@ int8 codes within one step of 127ths (a value on a rounding edge may
 round either way) with equal scales to ``1e-6``.  Data pipeline and checkpoints: exact.
 """
 import dataclasses
+import io
+import json
 import zipfile
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -485,13 +488,59 @@ def test_checkpoints_restore_across_packages(setup, tmp_path, moments):
 
 
 def test_checkpoint_refuses_bfloat16_leaves(tmp_path):
-    mgr = CheckpointManager(tmp_path)
-    with pytest.raises(TypeError, match="ml_dtypes"):
-        mgr.save(0, {"w": torch.zeros(4, dtype=torch.bfloat16)})
+    """A bfloat16 leaf saves (as the reference saves it, see below) but
+    restores in neither package: the reference's ``np.load`` gives a
+    ``|V2`` array that ``astype("bfloat16")`` cannot cast, and the
+    port's restore raises where the reference's would."""
+    CheckpointManager(tmp_path).save(
+        0, {"w": torch.zeros(4, dtype=torch.bfloat16)})
     JCheckpointManager(tmp_path / "j").save(
         0, {"w": jnp.zeros(4, jnp.bfloat16)})
-    with pytest.raises(TypeError, match="ml_dtypes"):
-        CheckpointManager(tmp_path / "j").restore({"w": torch.zeros(4)})
+    for d in (tmp_path, tmp_path / "j"):
+        with pytest.raises(TypeError, match="ml_dtypes"):
+            CheckpointManager(d).restore({"w": torch.zeros(4)})
+        with pytest.raises(ValueError, match="No cast function"):
+            JCheckpointManager(d).restore(
+                {"w": jnp.zeros(4, jnp.bfloat16)})
+
+
+def _npz_members(path):
+    """Each member of a ``np.savez`` file as (npy header, data bytes)."""
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for info in zf.infolist():
+            raw = zf.read(info.filename)
+            fh = io.BytesIO(raw)
+            np.lib.format.read_magic(fh)
+            np.lib.format.read_array_header_1_0(fh)
+            out[info.filename] = (raw[:fh.tell()], raw[fh.tell():])
+    return out
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_bfloat16_leaf_is_saved_as_the_reference_saves_it(tmp_path,
+                                                          n_shards):
+    """The reference writes a bfloat16 leaf through ``ml_dtypes``, the
+    port from a ``uint16`` view of the same bits: equal manifest leaf
+    entries, npy headers (``'<V2'``) and member bytes (whole zip files
+    differ by their timestamps)."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((7, 5)).astype(ml_dtypes.bfloat16)
+    b = rng.standard_normal(4).astype(np.float32)
+    JCheckpointManager(tmp_path / "j", n_shards=n_shards).save(
+        1, {"w": jnp.asarray(w), "b": jnp.asarray(b)})
+    CheckpointManager(tmp_path / "t", n_shards=n_shards).save(
+        1, {"w": torch.from_numpy(w.view(np.int16).copy())
+            .view(torch.bfloat16), "b": torch.from_numpy(b)})
+    jd, td = (tmp_path / x / "step_00000001" for x in "jt")
+    jm, tm = (json.loads((d / "manifest.json").read_text())
+              for d in (jd, td))
+    assert jm["leaves"] == tm["leaves"]
+    assert jm["leaves"]["w"]["dtype"] == "bfloat16"
+    for i in range(n_shards):
+        assert _npz_members(jd / f"shard_{i}.npz") \
+            == _npz_members(td / f"shard_{i}.npz")
+    assert b"'descr': '<V2'" in _npz_members(td / "shard_0.npz")["w.npy"][0]
 
 
 @pytest.mark.parametrize("damage", ["flipped_byte", "compressed"])
