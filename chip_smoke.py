@@ -13,6 +13,10 @@ each hand-written kernel against its plain PyTorch version:
   either; count the ``HGMMA`` instructions in the flash backward's
   library and read the registers and spills of its 34 instantiations
   (18 of the FMA route, 16 of the tensor-core route; none may spill);
+  read the registers and spills of every kernel of the ``rg_lru`` and
+  MoE libraries (none may spill) and count their new routes' copy
+  instructions in the SASS: ``UTMALDG`` (TMA) in ``librg_lru.so``,
+  ``UBLKCP`` (bulk copy) in ``libmoe_dispatch.so``;
 * phase 1: each relocation-codec kernel at the main path's shapes over
   float32, bfloat16, int32, uint8 and float64 (width > row bytes,
   zero-width slots, out-of-range indices, the arena's last row),
@@ -70,15 +74,18 @@ each hand-written kernel against its plain PyTorch version:
   gates, forget gates near 1) in float32 and bfloat16 (mlstm also
   float16), within the tolerances stated at ``rg_lru_close`` and
   ``mlstm_close``, and 16-bit mlstm within half an output ulp + 1e-4
-  max|h| of the f32 recurrence on its own rounded, scaled q and k; each
-  timed beside its bound and its plain version (mlstm in bf16, f16 and
-  on the f32 FMA route);
+  max|h| of the f32 recurrence on its own rounded, scaled q and k;
+  ``rg_lru`` on every case also launched twice and on the simple route,
+  all the same bits as its first launch; each timed beside its bound
+  and its plain version (mlstm in bf16, f16 and on the f32 FMA route;
+  ``rg_lru`` on both routes, per call and in device time);
 * phases 8 and 9: recurrentgemma-2b (26 layers: 18 RG-LRU + 8 local
   attention, d_model 2560; 4 prompts of 4096 tokens, longer than its
   2048 window) and xlstm-350m (24 layers: 21 mLSTM + 3 sLSTM, d_model
   1024; 4 prompts of 2048 tokens) through phase 5's checks, with random
-  weights from a seed: the fused prefill launches ``rg_lru`` 18 and
-  ``flash_attention`` 8 times, ``mlstm_chunkwise`` 21 times;
+  weights from a seed: the fused prefill launches ``rg_lru`` 18 times,
+  all on its TMA route, and ``flash_attention`` 8 times,
+  ``mlstm_chunkwise`` 21 times;
 * phase 10: phase 6's serving runtime over recurrentgemma-2b (16
   rounds): each ``SeqKV`` holds the local-attention ring caches and the
   RG-LRU hidden state and conv tail of its sequence;
@@ -87,10 +94,12 @@ each hand-written kernel against its plain PyTorch version:
   122 880 expert-buffer rows; y 122 880 x 2048 back to 16 384 tokens,
   top-6; bfloat16) and decode shapes, and over a sweep (float32,
   bfloat16, float16; unaligned rows, M = 0, N = 1, repeated indices,
-  K = 1 and 8, every slot -1): the gather equal, the combine within
-  the tolerance stated at ``combine_close``; each timed beside its byte
-  bound, its plain version and, for the gather, ``index_select``, at
-  both shapes (the decode shape in device time too);
+  K = 1, 8 and 16, every slot -1): the gather equal, the combine within
+  the tolerance stated at ``combine_close`` and, on every case, launched
+  twice and on every route the inputs allow (bulk, registers, simple),
+  all the same bits; each timed beside its byte bound, its plain version
+  and, for the gather, ``index_select``, at both shapes, per call and in
+  device time (the combine on each of its routes);
 * phase 12: deepseek-v2-lite-16b (MLA + MoE: 27 layers, d_model 2048,
   64 experts top-6 + 2 shared; random weights from a seed; 4 prompts of
   4096 tokens).  At depth 4 (the dense first layer and 3 MoE layers) in
@@ -100,14 +109,15 @@ each hand-written kernel against its plain PyTorch version:
   flip at a wider margin fails), and bfloat16 against that float32 run
   as in phase 5.  At full depth in bfloat16, parameters drawn in the
   compute dtype: the fused prefill launches ``flash_attention`` 27 and
-  ``gather_rows`` and ``moe_combine`` 26 times each, every result is
+  ``gather_rows`` and ``moe_combine`` 26 times each (every combine on
+  its bulk route), every result is
   finite, layer 1's latent cache agrees within 1e-2 (relative L2) and
   the first MoE layer's routed output on one input within one bfloat16
   ulp, then 32 decode steps from each state;
 * phase 13: phase 6's serving runtime over deepseek-v2-lite-16b (16
   rounds): each ``SeqKV`` holds 27 latent caches (1024 x (512 + 64)
   bfloat16 and positions), and every decode step launches both MoE
-  kernels;
+  kernels, no combine on its simple route;
 * phase 14: the paper's workloads.  K-Means: 8 places, 2^24 points
   (rows of 4 f64), k 16, 10 iterations, the GLB relocating every 2
   iterations through the device transport toward a 3x place (the run
@@ -168,11 +178,12 @@ each hand-written kernel against its plain PyTorch version:
   ``CheckpointManager`` round trip of the
   parameters and moments, bit for bit.
 
-The launch counts are set to 0 just before each main path (phases 2-3,
-5, 6, 8, 9, 10, 12, 13, each app of phase 14, 15-17 and 19) and read
-just after; a path that launched none of its kernels fails (MolDyn and
-PlhamJ have no hand-written kernel on their path: their counts are
-recorded, all 0).  Every check raises on failure (a phase logs all its
+The launch counts (and ``rg_lru``'s and ``moe_combine``'s counts by
+route, reported as ``"rg_lru:tma"`` and so on) are set to 0 just before
+each main path (phases 2-3, 5, 6, 8, 9, 10, 12, 13, each app of phase
+14, 15-17 and 19) and read just after; a path that launched none of its
+kernels fails (MolDyn and PlhamJ have no hand-written kernel on their
+path: their counts are recorded, all 0).  Every check raises on failure (a phase logs all its
 comparisons first).  The output ends with each
 phase's wall time and peak memory, the card's name and power limit, a
 ``kernels`` JSON line and, as the last line, ``{"ok": true, "device":
@@ -332,6 +343,41 @@ class Gate:
 
     def close(self):
         require(not self.failed, f"{self.what}: {self.failed}")
+
+
+def reset_counts():
+    """Every launch count, and the routed kernels' counts by route, to 0
+    (just before a main path)."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import rg_lru as rl
+
+    cuda_build.reset_launch_counts()
+    for table in (rl.route_counts, md.combine_route_counts):
+        table.update(dict.fromkeys(table, 0))
+
+
+def read_counts(main_launches):
+    """The launch counts since :func:`reset_counts` into ``main_launches``
+    (just after a main path), with the routed kernels' launches by route
+    as ``"rg_lru:tma"``, ``"moe_combine:bulk"`` and so on."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import rg_lru as rl
+
+    main_launches.update(cuda_build.launch_counts)
+    for kernel, table in (("rg_lru", rl.route_counts),
+                          ("moe_combine", md.combine_route_counts)):
+        main_launches.update({f"{kernel}:{r}": n for r, n in table.items()})
+
+
+def same_bits(first, *others) -> bool:
+    """Every one of ``others`` (a tensor or a tuple of tensors, as
+    ``first``) holds the same bits as ``first``."""
+    flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    return all(len(flat(o)) == len(flat(first)) and all(
+        bytes_equal(p, q) for p, q in zip(flat(first), flat(o)))
+        for o in others)
 
 
 def torch_dtype(name):
@@ -1049,7 +1095,7 @@ RG_LRU_SHAPE = (4, 4096, 2560)          # recurrentgemma-2b's prefill scan
 MLSTM_SHAPE = (16, 2048, 512)           # xlstm-350m's: (B*H, S, d)
 # (B, S, D, with h0)
 RG_LRU_SWEEP = [(3, 1000, 1000, True), (1, 17, 33, False),
-                (2, 4096, 2560, True), (1, 1, 2560, True)]
+                (2, 4096, 2560, True), (1, 1, 2560, True), (2, 70, 8, True)]
 # (BH, S, d, i offset, f offset): S < 64, S = 65, head dims 16 / 64 /
 # 512 / 1024 (the tensor-core route) and 24 (the FMA route in 16 bits)
 MLSTM_SWEEP = [(4, 40, 16, 0.0, 2.0), (2, 1000, 64, 0.0, 2.0),
@@ -1152,6 +1198,13 @@ def mlstm_contract_share(h, q, k, v, ig, fg):
     return float(((h.float() - want).abs() / bound).max())
 
 
+def route_times(runs):
+    """Each route's time (``runs``: route -> a call on it), per single call
+    with the host's launch (``ms``) and in device time (``device_ms``)."""
+    return {r: {"ms": cuda_ms(run), "device_ms": device_ms(run)}
+            for r, run in runs.items()}
+
+
 def phase_recurrence_kernels(report):
     """rg_lru and mlstm_chunkwise against their plain versions at the
     main paths' shapes and over a sweep, in float32 and bfloat16 (mlstm
@@ -1173,9 +1226,16 @@ def phase_recurrence_kernels(report):
             x, a, h0 = rg_lru_inputs(gen, case[:3], dtype, case[3])
             got = rl.rg_lru(x, a, h0)
             want = ref.rg_lru_ref(x, a, h0)
+            # its route again and the simple route: the same bits
+            route = rl.rg_lru_route(x, a)
+            same = same_bits(got, rl.rg_lru(x, a, h0),
+                             rl.rg_lru(x, a, h0, route="simple"))
             torch.cuda.synchronize()
+            gate.check(same, f"rg_lru {case} {dtype}: the {route} route "
+                       "twice and the simple route give other bits")
             sweep.append({"kernel": "rg_lru", "case": list(case),
-                          "dtype": dtype, "max_abs_err": rg_lru_close(
+                          "dtype": dtype, "route": route, "same_bits": same,
+                          "max_abs_err": rg_lru_close(
                               gate, got, want, dtype, str(case))})
             del x, a, h0, got, want
         for case in [MLSTM_SHAPE + (0.0, 2.0)] + MLSTM_SWEEP:
@@ -1210,9 +1270,13 @@ def phase_recurrence_kernels(report):
     nbytes = x.nbytes + a.nbytes + x.nbytes + B * D * 4   # x, a, h, h_last
     flops = 8 * x.nelement()     # a*a, 1-, clip (2), sqrt, *x, fma (2)
     b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    route = rl.rg_lru_route(x, a)
+    routes = route_times({r: (lambda r=r: rl.rg_lru(x, a, route=r))
+                          for r in rl.ROUTES})
     out["rg_lru"] = {
         "shape": f"x, a ({B}, {S}, {D}) float32, no h0",
-        "ms": cuda_ms(lambda: rl.rg_lru(x, a)),
+        "route": route, "ms": routes[route]["ms"],
+        "device_ms": routes[route]["device_ms"], "routes": routes,
         "plain_ms": cuda_ms(lambda: ref.rg_lru_ref(x, a), reps=3, warm=1),
         "library_ms": None, "library_call": None,
         "bound_ms": max(b_bytes, b_ops) * 1e3, "bytes": nbytes,
@@ -1260,6 +1324,8 @@ def phase_recurrence_kernels(report):
         log(f"[{name}] {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} "
             f"{t['bound_by']}, plain {t['plain_ms']:.3f}); sweep max|err| "
             f"{t['sweep_max_abs_err']}")
+    log(f"[rg_lru] {out['rg_lru']['route']} route; routes "
+        f"{out['rg_lru']['routes']}")
     report["recurrence_kernels"] = out
     return out
 
@@ -1274,9 +1340,10 @@ MOE_DECODE = (4, 64, 6, 2048)           # B = 4: capacity min(T, 64) = 4
 # gather (N, M, D): aligned and unaligned rows, M = 0, N = 1, repeats
 GATHER_SWEEP = [(300, 500, 2048), (50, 64, 24), (37, 100, 13), (1, 9, 24),
                 (20, 0, 24), (4097, 2048, 2048)]
-# combine (T, K, S, D): K = 1 and 8, unaligned D
+# combine (T, K, S, D): K = 1, 8 and 16, unaligned D, tokens on either
+# side of moe_dispatch.RING_MIN_TOKENS
 COMBINE_SWEEP = [(200, 6, 640, 2048), (33, 1, 40, 24), (50, 8, 400, 24),
-                 (17, 6, 60, 13)]
+                 (17, 6, 60, 13), (300, 16, 900, 512), (40, 16, 300, 2048)]
 
 
 def moe_tables(gen, shape):
@@ -1329,6 +1396,23 @@ def combine_close(gate, got, want, y, slots, w, dtype, what):
     return float(err.max()) if err.numel() else 0.0
 
 
+def combine_same_bits(gate, y, slots, w, got, what):
+    """Hold ``got``, the combine's first launch on these inputs, against a
+    second launch and against every route the inputs allow (the simple
+    route always): the same bits.  Returns the route it took."""
+    import torch
+    from repro_torch.kernels import moe_dispatch as md
+
+    route = md.combine_route(y, slots)
+    others = [md.moe_combine(y, slots, w)] + [
+        md.moe_combine(y, slots, w, route=r) for r in md.COMBINE_ROUTES
+        if route != "simple" or r == "simple"]
+    torch.cuda.synchronize()
+    gate.check(same_bits(got, *others), f"moe_combine {what}: the {route} "
+               "route twice and the other routes give other bits")
+    return route
+
+
 def phase_moe_kernels(report):
     """gather_rows and moe_combine against their plain versions at
     deepseek's prefill and decode shapes and over a sweep, in float32,
@@ -1349,7 +1433,9 @@ def phase_moe_kernels(report):
         want = ref.moe_combine_ref(y, slots, w)
         torch.cuda.synchronize()
         sweep.append({"kernel": "moe_combine", "case": list(shape),
-                      "dtype": "bfloat16", "max_abs_err": combine_close(
+                      "dtype": "bfloat16", "route": combine_same_bits(
+                          gate, y, slots, w, got, str(shape)),
+                      "max_abs_err": combine_close(
                           gate, got, want, y, slots, w, "bfloat16",
                           str(shape))})
         del x, src, y, slots, w, got, want
@@ -1378,6 +1464,9 @@ def phase_moe_kernels(report):
                 torch.cuda.synchronize()
                 sweep.append({"kernel": "moe_combine",
                               "case": [Tn, K, S, D, lo], "dtype": dtype,
+                              "route": combine_same_bits(
+                                  gate, y, slots, w, got,
+                                  f"{(Tn, K, S, D, lo)} {dtype}"),
                               "max_abs_err": combine_close(
                                   gate, got, want, y, slots, w, dtype,
                                   str((Tn, K, S, D, lo)))})
@@ -1404,10 +1493,15 @@ def phase_moe_kernels(report):
         "max_abs_err": 0.0}
     nbytes = (rows_read * D * item + T * D * item       # rows read, out
               + slots.nbytes + w.nbytes)
+    route = md.combine_route(y, slots)
+    routes = route_times({r: (lambda r=r: md.moe_combine(y, slots, w,
+                                                         route=r))
+                          for r in md.COMBINE_ROUTES})
     out["moe_combine"] = {
         "shape": f"y ({y.shape[0]}, {D}) bfloat16, slots and weights "
                  f"({T}, {K}), {rows_read} slots live",
-        "ms": cuda_ms(lambda: md.moe_combine(y, slots, w)),
+        "route": route, "ms": routes[route]["ms"],
+        "device_ms": routes[route]["device_ms"], "routes": routes,
         "plain_ms": cuda_ms(lambda: ref.moe_combine_ref(y, slots, w)),
         "library_ms": None,
         "library_call": "none: no one-call equivalent",
@@ -1434,11 +1528,15 @@ def phase_moe_kernels(report):
         "bound_ms": bound_ms(nbytes), "bytes": nbytes}
     nbytes = (rows_read * D * item + T * D * item
               + slots.nbytes + w.nbytes)
-    run = lambda: md.moe_combine(y, slots, w)  # noqa: E731
+    route = md.combine_route(y, slots)
+    routes = route_times({r: (lambda r=r: md.moe_combine(y, slots, w,
+                                                         route=r))
+                          for r in md.COMBINE_ROUTES})
     out["moe_combine"]["decode"] = {
         "shape": f"y ({y.shape[0]}, {D}) bfloat16, slots and weights "
                  f"({T}, {K}), {rows_read} slots live",
-        "ms": cuda_ms(run), "device_ms": device_ms(run),
+        "route": route, "ms": routes[route]["ms"],
+        "device_ms": routes[route]["device_ms"], "routes": routes,
         "bound_ms": bound_ms(nbytes), "bytes": nbytes}
     del x, src, y, slots, w
     torch.cuda.empty_cache()
@@ -1492,7 +1590,7 @@ LM = {
         "config": "recurrentgemma_2b",
         "widths": (26, 2560, 10, 1, 256, 7680, 256000),
         "batch": 4, "prompt": 4096, "s_cache": 4160,
-        "launches": {"rg_lru": 18, "flash_attention": 8},
+        "launches": {"rg_lru": 18, "rg_lru:tma": 18, "flash_attention": 8},
         "leaves": {"rec_h": _slot(0, "h"),
                    "rec_conv_tail": _slot(0, "conv_tail"),
                    "suffix_rec_h": lambda st: st["suffix"][1]["h"],
@@ -1565,7 +1663,7 @@ LM = {
         "moe_mla": (64, 6, 2, 1408, 1, 512, 0, 128, 64, 128),
         "batch": 4, "prompt": 4096, "s_cache": 4160,
         "launches": {"flash_attention": 27, "gather_rows": 26,
-                     "moe_combine": 26},
+                     "moe_combine": 26, "moe_combine:bulk": 26},
         "layer1": _slot(0, "ckv", 0),
     },
 }
@@ -1593,8 +1691,10 @@ def lm_config(key):
                   "rg_lru": slots.count("rec"),
                   "mlstm_chunkwise": slots.count("mlstm"),
                   "gather_rows": n_moe, "moe_combine": n_moe}
-    require({k: v for k, v in per_kernel.items() if v} == spec["launches"],
-            f"{cfg.name}: layer slots {per_kernel} != {spec['launches']}")
+    kernels = {k: v for k, v in spec["launches"].items()
+               if ":" not in k}              # without the counts by route
+    require({k: v for k, v in per_kernel.items() if v} == kernels,
+            f"{cfg.name}: layer slots {per_kernel} != {kernels}")
     return cfg
 
 
@@ -1718,7 +1818,6 @@ def phase_lm(key, report, main_launches):
     import dataclasses
 
     import torch
-    from repro_torch.kernels import cuda_build
     from repro_torch.models import Parallel
     from repro_torch.models import transformer as T
 
@@ -1773,10 +1872,10 @@ def phase_lm(key, report, main_launches):
     # that is the full depth
     t0 = time.perf_counter()
     if full:
-        cuda_build.reset_launch_counts()
+        reset_counts()
     st_f, lg_f, wall = prefill(cfg_g, params, tokens, "fused", s_cache)
     if full:
-        main_launches.update(cuda_build.launch_counts)
+        read_counts(main_launches)
     st_c, lg_c, wall_c = prefill(cfg_g, params, tokens, "composite",
                                  s_cache)
     e16 = {"prefill_logits": bf16_close(gate, lg_f, lg_c,
@@ -1835,7 +1934,6 @@ def lm_full_depth(key, cfg, tokens, follow, gate, main_launches,
     if given, runs the model's own checks on the full-depth parameters
     and returns entries for the report."""
     import torch
-    from repro_torch.kernels import cuda_build
     from torch.utils import _pytree as pytree
 
     spec = LM[key]
@@ -1848,9 +1946,9 @@ def lm_full_depth(key, cfg, tokens, follow, gate, main_launches,
     # one path at a time, prefill then decode, so one prefill state is
     # alive at a time (gemma2-27b's weights leave ~25 GB for states,
     # decode clones and activations)
-    cuda_build.reset_launch_counts()
+    reset_counts()
     st_f, lg_f, wall = prefill(cfg, params, tokens, "fused", s_cache)
-    main_launches.update(cuda_build.launch_counts)
+    read_counts(main_launches)
     l1f = spec["layer1"](st_f).float()
     finite = [all(bool(torch.isfinite(x.float()).all())
                   for x in pytree.tree_leaves(st_f))]
@@ -2241,7 +2339,6 @@ def phase_kmeans(report, main_launches):
     import torch
     from repro_torch.apps import KMeans
     from repro_torch.apps.kmeans import draw_points
-    from repro_torch.kernels import cuda_build
 
     gate = Gate("kmeans")
     t0 = time.perf_counter()
@@ -2249,9 +2346,9 @@ def phase_kmeans(report, main_launches):
                 device=DEV, **KM)
     setup_s = time.perf_counter() - t0
     i0 = km.inertia()
-    cuda_build.reset_launch_counts()
+    reset_counts()
     ms = timed_ms(km.iterate, KM_ITERS, km.finish)
-    main_launches.update(cuda_build.launch_counts)
+    read_counts(main_launches)
     i1 = km.inertia()
     st = km.balancer.stats
     out = {"points": KM_POINTS, **KM, "iterations": KM_ITERS,
@@ -2329,15 +2426,14 @@ def phase_moldyn(report, main_launches):
     import torch
     from repro_torch.apps import MolDyn
     from repro_torch.core import GLBConfig
-    from repro_torch.kernels import cuda_build
 
     gate = Gate("moldyn")
-    cuda_build.reset_launch_counts()
+    reset_counts()
     md = MolDyn(n_particles=MD_B, device=DEV, **MD)
     pairs = sum(s.total_pairs() for s in md.tiles)
     first_ms = timed_ms(md.step, 1)         # builds each tile's pairs
     ms = timed_ms(md.step, MD_STEPS - 1)
-    main_launches.update(cuda_build.launch_counts)
+    read_counts(main_launches)
     out = {"particles": MD_B, **MD, "steps": MD_STEPS,
            "pairs_per_step": pairs, "first_step_ms": first_ms,
            "ms_per_step": ms, "allreduce_bytes": md.allreduce_bytes,
@@ -2389,7 +2485,7 @@ def counted(main_launches, run):
     launches are added to ``main_launches``."""
     from repro_torch.kernels import cuda_build
 
-    cuda_build.reset_launch_counts()
+    reset_counts()
     out = run()
     for name, n in cuda_build.launch_counts.items():
         main_launches[name] = main_launches.get(name, 0) + n
@@ -2494,13 +2590,12 @@ def phase_serving(report, main_launches, key="qwen2"):
     ``pack_rows``."""
     import numpy as np
     import torch
-    from repro_torch.kernels import cuda_build
     from repro_torch.serving import DecodeEngine, RealDecodeSim, SeqKV
 
     rounds = SERVE_ROUNDS[key]
     engine = DecodeEngine(lm_config(key), s_cache=1024, max_batch=8,
                           seed=SEED, device=DEV)
-    cuda_build.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     sim = RealDecodeSim(n_replicas=4, slots=16, work=(1, 1, 3, 1),
                         preload=(2, 24), arrival_rate=3.0,
@@ -2509,7 +2604,7 @@ def phase_serving(report, main_launches, key="qwen2"):
                         engine=engine, transport="device").run(rounds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    main_launches.update(cuda_build.launch_counts)
+    read_counts(main_launches)
     d = sim.driver
     require(d.lost() == 0, f"{d.lost()} sequences lost")
     seq_kv = None
@@ -2533,6 +2628,10 @@ def phase_serving(report, main_launches, key="qwen2"):
         for name in ("gather_rows", "moe_combine"):
             require(main_launches.get(name, 0) > 0,
                     f"serving decode never launched {name}")
+        require(main_launches["moe_combine:simple"] == 0,
+                f"serving: {main_launches['moe_combine:simple']} of "
+                f"{main_launches['moe_combine']} moe_combine calls took the "
+                "simple route")
     p95 = sim.window_p95()
     out = {"config": engine.cfg.name, "rounds": rounds, "wall_s": wall,
            "tokens_decoded": sim.tokens,
@@ -2835,7 +2934,6 @@ def phase_train(report, main_launches):
     import numpy as np
     import torch
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Parallel, zoo
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -2945,7 +3043,7 @@ def phase_train(report, main_launches):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cuda_build.reset_launch_counts()
+    reset_counts()
     fa.bwd_route_counts.update(tensor_core=0, fma=0)
     for _ in range(TRAIN["steps"]):
         s0 = time.perf_counter()
@@ -2956,7 +3054,7 @@ def phase_train(report, main_launches):
         mitigator.observe_and_maybe_rebalance(
             walls[-1] * loads / loads.sum(), shards)
     torch.cuda.synchronize()
-    main_launches.update(cuda_build.launch_counts)
+    read_counts(main_launches)
     times["train_s"] = time.perf_counter() - t0
     n = TRAIN["steps"]
     per_step = {k: v / n for k, v in main_launches.items() if v}
@@ -3276,6 +3374,42 @@ def mlstm_build(build_log, so_path):
     return out
 
 
+def routed_build(lib, so_path, want, op):
+    """What phase 0 built for a library whose kernels have routes: ptxas'
+    registers and spill bytes of every kernel instantiation, from the
+    compiler's output kept beside the library (``want``: kernel name ->
+    the instantiations it must have; none may spill), and the count of
+    ``op`` in the library's SASS: ``UTMALDG`` (a TMA tensor load) or
+    ``UBLKCP`` (a 1-D bulk copy), the instruction of the new route."""
+    import re
+
+    kernels, cur = {}, None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"Function properties for \S*?\d([a-z_]+_kernel)"
+                      r"I(\w+?)E", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
+            kernels[cur] = {}
+        elif cur and "spill stores" in line:
+            kernels[cur]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif cur and "Used" in line:
+            kernels[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    n_op = sass_count(so_path, op)
+    found = {k: sum(name.startswith(k + "<") for name in kernels)
+             for k in want}
+    log(f"[build] {lib.name}: {n_op} {op} in the SASS; {kernels}")
+    require(n_op > 0, f"{lib.name}: no {op} in lib{lib.name}.so")
+    require(found == want and all(
+        k.get("spill_bytes") == 0 and "registers" in k
+        for k in kernels.values()),
+        f"{lib.name}: ptxas must report 0 spill bytes and the registers of "
+        f"each of {want} (found {found}); the build log gave {kernels}")
+    return {op: n_op, "kernels": kernels}
+
+
 def brief(rec):
     """``rec`` without its per-leaf tables (they stay in ``--out``)."""
     if isinstance(rec, dict):
@@ -3344,6 +3478,14 @@ def main(argv=None) -> int:
                                         paths[libraries.index(ml.LIBRARY)])
     report["flash_bwd_build"] = flash_bwd_build(
         fa.BWD_LIBRARY.build_log, paths[libraries.index(fa.BWD_LIBRARY)])
+    report["rg_lru_build"] = routed_build(
+        rl.LIBRARY, paths[libraries.index(rl.LIBRARY)],
+        {"rg_lru_kernel": 3, "rg_lru_tma_kernel": 3}, "UTMALDG")
+    report["moe_build"] = routed_build(
+        md.LIBRARY, paths[libraries.index(md.LIBRARY)],
+        {"gather_rows_kernel": 3, "moe_combine_kernel": 6,
+         "moe_combine_bulk_kernel": 3, "moe_combine_regs_kernel": 3},
+        "UBLKCP")
 
     with Phase("kernels", report):
         times = phase_kernels(args.shift, report)
@@ -3359,7 +3501,7 @@ def main(argv=None) -> int:
     # main path 1 (phases 2-3): every launch count from zero, read right
     # after
     launches = {}
-    cuda_build.reset_launch_counts()
+    reset_counts()
     with Phase("windows", report):
         cols, stats, pages = run_windows(args.shift)
     with Phase("glb_device_loop", report):
@@ -3450,7 +3592,9 @@ def main(argv=None) -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t.get("bound_by", "bytes"),
                 "library_ms": t["library_ms"],
-                "library_call": t["library_call"], "shape": t["shape"]})
+                "library_call": t["library_call"], "shape": t["shape"],
+                "kernel_route": t.get("route"),
+                "kernel_routes": t.get("routes")})
     report["kernels"] = kernels
     report["smi"] = smi
     if args.out:
@@ -3463,7 +3607,7 @@ def main(argv=None) -> int:
         "recurrentgemma_serving", "deepseek", "deepseek_serving",
         "kmeans", "moldyn", "plham", "phi4", "gemma3", "gemma2",
         "flash_d192", "flash_d256", "flash_build", "mlstm_build",
-        "flash_backward", "flash_bwd_build")}
+        "flash_backward", "flash_bwd_build", "rg_lru_build", "moe_build")}
         | {"qwen2_train": brief(report["qwen2_train"])}
         | {"launches": launches}))
     print(smi)

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): type
-// conversions, the input-type hi + lo split, mbarriers, TMA loads, the
-// 128-byte-swizzle wgmma descriptors, the wgmma m64nNk16 wrappers and the
-// driver's cuTensorMapEncodeTiled.  Each source that includes it gets its
-// own copy (everything sits in an anonymous namespace); the build hashes
-// this header into the key of every library that includes it
-// (kernels/cuda_build.py).
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), the RG-LRU
+// scan (rg_lru.cu) and the MoE combine (moe_dispatch.cu): type
+// conversions, the input-type hi + lo split, mbarriers, TMA and 1-D bulk
+// loads, the 128-byte-swizzle wgmma descriptors, the wgmma m64nNk16
+// wrappers and the tensor-map encoder cuTensorMapEncodeTiled.  Each
+// source that includes it gets its own copy (everything sits in an
+// anonymous namespace); the build hashes this header into the key of
+// every library that includes it (kernels/cuda_build.py).
 
 #pragma once
 
@@ -117,6 +118,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 3-D tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -347,6 +361,35 @@ int encode_map(CUtensorMap* map, const void* ptr, long long B, long long H,
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// a contiguous (n2, n1, n0) array of T (float, __nv_bfloat16 or __half)
+// as a 3-D map (n0, n1, n2) read in boxes of (box0, box1, 1), no
+// swizzle, zeros past the edges; 0 or -CUresult.  The base must be
+// 16-byte aligned and n0 * sizeof(T) a 16-byte multiple.
+template <typename T>
+int encode_map_3d(CUtensorMap* map, const void* ptr, long long n0,
+                  long long n1, long long n2, int box0, int box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(n0) * sizeof(T),
+      static_cast<cuuint64_t>(n0) * static_cast<cuuint64_t>(n1) * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                             static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType ty =
+      std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = fn(
+      map, ty, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }

@@ -35,7 +35,10 @@ both of its routes (16-bit aligned: the tensor-core kernels; float32
 and unaligned views: the FMA kernels), each element of a 16-bit
 gradient within half an output ulp of the float32 result plus ``1e-4``
 of the largest; a reduced qwen2 train step's gradients fused vs
-composite within ``1e-4`` in relative L2 (float32).
+composite within ``1e-4`` in relative L2 (float32).  The routes of
+``rg_lru`` (TMA, simple) and ``moe_combine`` (bulk, registers, simple)
+keep one per-element arithmetic and order: the same bits on every route
+a case allows, and on two launches.
 """
 import dataclasses
 
@@ -342,6 +345,72 @@ def test_rg_lru_kernel_matches_plain_version_on_card(case, dtype):
     torch.testing.assert_close(hl, want_l, atol=1e-5, rtol=0)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _same_bits(first, *others):
+    return all(len(o) == len(first) and all(
+        torch.equal(_bits(p), _bits(q)) for p, q in zip(first, o))
+        for o in others)
+
+
+def _offset_copy(t, elems=1):
+    """A copy of ``t`` whose storage starts ``elems`` elements past an
+    aligned allocation: contiguous, but not 16-byte aligned."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", RG_LRU_CASES, ids=str)
+def test_rg_lru_routes_give_the_same_bits_on_card(case, dtype):
+    """The TMA route keeps the simple route's per-element arithmetic and
+    its order: its own route twice and the simple route give the same
+    bits, and each launch counts on its route."""
+    _need_card()
+    from repro_torch.kernels import rg_lru as rl
+
+    x, a, h0 = _rg_lru_inputs(case, dtype, seed=len(str(case)) + 1)
+    route = rl.rg_lru_route(x, a)
+    assert route == ("tma" if case[2] * x.element_size() % 16 == 0
+                     else "simple")
+    before = dict(rl.route_counts)
+    first = rl.rg_lru(x, a, h0)
+    again = rl.rg_lru(x, a, h0)
+    simple = rl.rg_lru(x, a, h0, route="simple")
+    torch.cuda.synchronize()
+    assert rl.route_counts[route] == before[route] + (
+        2 if route == "tma" else 3)
+    assert _same_bits(first, again, simple)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rg_lru_offset_view_takes_the_simple_route_on_card(dtype):
+    """Inputs that start off a 16-byte boundary cannot feed a tensor map:
+    the simple route, the same bits as the TMA route on aligned copies;
+    asking for the TMA route raises."""
+    _need_card()
+    from repro_torch.kernels import rg_lru as rl
+
+    x, a, h0 = _rg_lru_inputs((2, 300, 2560, True), dtype, seed=3)
+    xo = _offset_copy(x)
+    assert rl.rg_lru_route(xo, a) == "simple"
+    with pytest.raises(ValueError, match="TMA route"):
+        rl.rg_lru(xo, a, h0, route="tma")
+    before = rl.route_counts["simple"]
+    got = rl.rg_lru(xo, a, h0)
+    assert rl.route_counts["simple"] == before + 1
+    assert rl.rg_lru_route(x, a) == "tma"
+    want = rl.rg_lru(x, a, h0)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
 MLSTM_CASES = [
     # (BH, S, d, gate offsets (i, f))
     (2, 128, 64, (0.0, 2.0)), (1, 100, 32, (0.0, 2.0)),
@@ -606,6 +675,77 @@ def test_moe_kernels_match_plain_versions_on_card(dtype):
                 tol = tol + _ulp(torch.maximum(got.float().abs(),
                                                want.float().abs()), dtype)
             assert (err <= tol).all()
+
+
+# (T, K, S, D): every combine case, and K = 16 and token counts on both
+# sides of moe_dispatch.RING_MIN_TOKENS
+COMBINE_ROUTE_CASES = COMBINE_CASES + [(300, 6, 640, 2048),
+                                       (100, 16, 900, 512),
+                                       (300, 16, 900, 512),
+                                       (3, 16, 100, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", COMBINE_ROUTE_CASES, ids=str)
+def test_moe_combine_routes_give_the_same_bits_on_card(case, dtype):
+    """Every route sums the same products in the same order with the
+    same roundings: its own route twice and every route the inputs allow
+    give the same bits (some slots dropped, and every slot dropped)."""
+    _need_card()
+    from repro_torch.kernels import moe_dispatch as md
+
+    Tn, K, S, D = case
+    g = torch.Generator(device="cuda").manual_seed(Tn * 31 + K)
+    dt = getattr(torch, dtype)
+    y = torch.randn((S, D), generator=g, device="cuda").to(dt)
+    w = torch.rand((Tn, K), generator=g, device="cuda")
+    for lo in (-1, -S):
+        slots = torch.randint(lo, S, (Tn, K), generator=g, device="cuda",
+                              dtype=torch.int32)
+        if lo == -S:
+            slots = slots.clamp(max=-1)
+        route = md.combine_route(y, slots)
+        assert route == ("simple" if D * y.element_size() % 16
+                         else "bulk" if Tn >= md.RING_MIN_TOKENS
+                         else "registers")
+        before = dict(md.combine_route_counts)
+        first = md.moe_combine(y, slots, w)
+        others = [md.moe_combine(y, slots, w)] + [
+            md.moe_combine(y, slots, w, route=r) for r in md.COMBINE_ROUTES
+            if route != "simple" or r == "simple"]
+        torch.cuda.synchronize()
+        assert md.combine_route_counts[route] == before[route] + 3
+        assert _same_bits((first,), *((o,) for o in others))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_combine_offset_view_takes_the_simple_route_on_card(dtype):
+    """Expert outputs that start off a 16-byte boundary cannot take
+    16-byte copies: the simple route, the same bits as the chunked routes
+    on an aligned copy; asking for a chunked route raises."""
+    _need_card()
+    from repro_torch.kernels import moe_dispatch as md
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    y = torch.randn((640, 2048), generator=g, device="cuda").to(
+        getattr(torch, dtype))
+    w = torch.rand((300, 6), generator=g, device="cuda")
+    slots = torch.randint(-1, 640, (300, 6), generator=g, device="cuda",
+                          dtype=torch.int32)
+    yo = _offset_copy(y)
+    assert md.combine_route(yo, slots) == "simple"
+    for r in ("bulk", "registers"):
+        with pytest.raises(ValueError, match=f"{r} route"):
+            md.moe_combine(yo, slots, w, route=r)
+    before = md.combine_route_counts["simple"]
+    got = md.moe_combine(yo, slots, w)
+    assert md.combine_route_counts["simple"] == before + 1
+    want = [md.moe_combine(y, slots, w, route=r)
+            for r in ("bulk", "registers")]
+    torch.cuda.synchronize()
+    assert _same_bits((got,), *((o,) for o in want))
 
 
 @pytest.mark.cuda

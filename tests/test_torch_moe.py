@@ -136,6 +136,52 @@ def test_moe_combine_matches_pallas(case, all_dropped, impl):
         atol=1e-6, rtol=1e-6)
 
 
+def _combine_inputs(tokens, D, dtype=torch.bfloat16, offset=0, S=64,
+                    K=6):
+    y = torch.zeros(S * D + offset, dtype=dtype)[offset:].view(S, D)
+    return y, torch.zeros((tokens, K), dtype=torch.int32)
+
+
+# the combine's route, from dtype, shape, alignment and the token count
+# alone (the kernels run on the card; the choice is plain Python, so it
+# is checked here)
+COMBINE_ROUTE_CASES = {
+    "prefill: 16384 tokens, bf16 D 2048": (
+        lambda: _combine_inputs(16384, 2048), "bulk"),
+    "decode: 4 tokens, bf16 D 2048": (
+        lambda: _combine_inputs(4, 2048), "registers"),
+    "one token under the ring's floor": (
+        lambda: _combine_inputs(263, 2048), "registers"),
+    "the ring's floor": (lambda: _combine_inputs(264, 2048), "bulk"),
+    "f32 D 24 (96 bytes a row), K 16": (
+        lambda: _combine_inputs(33, 24, torch.float32, K=16), "registers"),
+    "f32 D 13": (lambda: _combine_inputs(33, 13, torch.float32), "simple"),
+    "odd D * itemsize (bf16 D 12)": (
+        lambda: _combine_inputs(300, 12), "simple"),
+    "offset view": (lambda: _combine_inputs(300, 2048, offset=1),
+                    "simple"),
+    "y[:, 1:] view": (lambda: (torch.zeros(64, 2049)[:, 1:],
+                               torch.zeros((4, 6), dtype=torch.int32)),
+                      "simple"),
+    "float64": (lambda: _combine_inputs(4, 2048, torch.float64), "simple"),
+}
+
+
+@pytest.mark.parametrize("case", list(COMBINE_ROUTE_CASES))
+def test_moe_combine_route_follows_dtype_shape_and_alignment(case):
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+
+    make, want = COMBINE_ROUTE_CASES[case]
+    y, slots = make()
+    assert md.combine_route(y, slots) == want
+    # on CPU tensors the wrapper is the plain version, whatever the route
+    if y.dtype != torch.float64:
+        w = torch.ones(slots.shape)
+        assert torch.equal(md.moe_combine(y, slots, w, route="simple"),
+                           ref.moe_combine_ref(y, slots, w))
+
+
 # ---------------------------------------------------------------------------
 # router and MoE FFN
 # ---------------------------------------------------------------------------

@@ -134,6 +134,52 @@ def test_rg_lru_plain_version_keeps_the_input_dtype():
     np.testing.assert_allclose(_f32(hl), _f32(pl), atol=1e-5, rtol=0)
 
 
+def _offset(shape, dtype, elems=1):
+    """A contiguous (B, S, D) view that starts ``elems`` elements past a
+    16-byte aligned allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+# the kernel's route, from dtype, shape and alignment alone (the kernel
+# runs on the card; the choice is plain Python, so it is checked here)
+RG_LRU_ROUTE_CASES = {
+    "aligned f32 D 2560": (lambda: (torch.zeros(4, 16, 2560),) * 2, "tma"),
+    "aligned bf16 D 2560": (
+        lambda: (torch.zeros(2, 8, 2560, dtype=torch.bfloat16),) * 2, "tma"),
+    "aligned f16 D 8 (narrower than a block)": (
+        lambda: (torch.zeros(2, 70, 8, dtype=torch.float16),) * 2, "tma"),
+    "f32 D 33": (lambda: (torch.zeros(2, 7, 33),) * 2, "simple"),
+    "x[..., 1:] view": (
+        lambda: (torch.zeros(2, 8, 2561)[..., 1:],) * 2, "simple"),
+    "offset view": (lambda: (_offset((2, 8, 2560), torch.float32),) * 2,
+                    "simple"),
+    "offset a only": (lambda: (torch.zeros(2, 8, 2560),
+                               _offset((2, 8, 2560), torch.float32, 2)),
+                      "simple"),
+    "odd D * itemsize (bf16 D 12)": (
+        lambda: (torch.zeros(1, 4, 12, dtype=torch.bfloat16),) * 2,
+        "simple"),
+    "mixed dtypes": (lambda: (torch.zeros(1, 4, 64),
+                              torch.zeros(1, 4, 64, dtype=torch.bfloat16)),
+                     "simple"),
+}
+
+
+@pytest.mark.parametrize("case", list(RG_LRU_ROUTE_CASES))
+def test_rg_lru_route_follows_dtype_shape_and_alignment(case):
+    from repro_torch.kernels import rg_lru as rl
+
+    make, want = RG_LRU_ROUTE_CASES[case]
+    x, a = make()
+    assert rl.rg_lru_route(x, a) == want
+    # on CPU tensors the wrapper is the plain version, whatever the route
+    if x.dtype == a.dtype:
+        hs, hl = rl.rg_lru(x, a, route="simple")
+        ws, wl = ref.rg_lru_ref(x, a)
+        assert torch.equal(hs, ws) and torch.equal(hl, wl)
+
+
 # ---------------------------------------------------------------------------
 # the block and its step
 # ---------------------------------------------------------------------------
